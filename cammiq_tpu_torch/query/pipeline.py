@@ -6,9 +6,14 @@ device; the pass ends in ONE blocking transfer, which also reads the slot
 overflow count.  On overflow the whole read set re-runs with ``maxm``
 doubled, and the wider ``maxm`` sticks for later runs.
 
-Quantification mode (rcounts) and Type-I counts are ported.  sc mode (the
-pair-table accumulation behind Type-II identification) is not yet: it
-raises ``NotImplementedError``.
+All three modes are ported: quantification (per-entry rcounts), Type-I
+counts, and sc mode, whose per-pair counts feed Type-II identification.
+sc mode reads the same pair table as the JAX session
+(``cammiq_tpu/query/pipeline.py:_pair_keys``): the distinct unordered
+(rid1, rid2) pairs of the doubly entries, taken from ``index_d`` for an
+npz session or from the artifact's ``prec`` rows with ``gid >= eu``.  It is
+built once per session on the host and kept on the device as one sorted
+int64 key ``lo << 32 | hi`` per pair.
 """
 
 from __future__ import annotations
@@ -45,6 +50,8 @@ class QuerySession:
         dev = resolve_device(device)
         self._init(TorchMergedIndex.from_merged(
             build_merged_index(index_u, index_d), dev), num_genome_slots, cfg)
+        if index_d is not None and index_d.num_entries:
+            self._pair_src = (index_d.rid1, index_d.rid2)
 
     @classmethod
     def from_artifact(cls, artifact, num_genome_slots: int,
@@ -55,6 +62,10 @@ class QuerySession:
         dev = resolve_device(device)
         self._init(TorchMergedIndex.from_artifact(artifact, dev),
                    num_genome_slots, cfg)
+        if artifact.ed:
+            prec = np.asarray(artifact.prec)
+            dd = prec[prec[:, 0] >= artifact.eu]
+            self._pair_src = (dd[:, 1], dd[:, 2])
         return self
 
     def _init(self, dm: TorchMergedIndex, num_genome_slots: int,
@@ -66,27 +77,57 @@ class QuerySession:
         self.num_entries_u = dm.eu
         self.num_entries_d = dm.ed
         self.maxm = MAXM_SEED
+        self._pair_src = None       # host (rid1, rid2) of the doubly entries
+        self._pair_keys_host = None  # int64 [P], sorted
+        self._pair_keys = None       # the same on the device
 
-    def _run_pass(self, reads: ReadSet, bs: int, with_rcounts: bool):
+    def pair_keys(self) -> torch.Tensor:
+        """Sorted distinct ``lo << 32 | hi`` keys of every pair the doubly
+        index can assign (case_pair always assigns a pair some doubly
+        entry carries), built on the first sc-mode pass."""
+        if self._pair_keys is None:
+            keys = np.zeros(0, np.int64)
+            if self._pair_src is not None:
+                r1, r2 = (np.asarray(r, np.int64) for r in self._pair_src)
+                keys = np.unique((np.minimum(r1, r2) << 32) | np.maximum(r1, r2))
+            self._pair_keys_host = keys
+            self._pair_keys = torch.from_numpy(keys).to(self.device)
+        return self._pair_keys
+
+    def _run_pass(self, reads: ReadSet, bs: int, with_rcounts: bool,
+                  sc_mode: bool):
         """One pass over the reads; host dict of counts, or None after a
         slot overflow (maxm is then doubled)."""
         G = self.num_genome_slots
         dev = self.device
         etot = self.num_entries_u + self.num_entries_d
+        pk = self.pair_keys() if sc_mode else None
+        P = pk.shape[0] if sc_mode else 0
         acc = {
             "cnts_u": torch.zeros(G, dtype=torch.int32, device=dev),
             "cnts_d": torch.zeros(G, dtype=torch.int32, device=dev),
-            "rcount": torch.zeros(etot + 1, dtype=torch.int32, device=dev),
             "nundet": torch.zeros((), dtype=torch.int32, device=dev),
             "nconf": torch.zeros((), dtype=torch.int32, device=dev),
             "ovs": torch.zeros((), dtype=torch.int32, device=dev),
+            # [P + 1]: the last slot is a dump for unassigned reads
+            "pairacc": torch.zeros(P + 1, dtype=torch.int32, device=dev),
         }
+        if with_rcounts:   # the largest copy of the pass: only when asked
+            acc["rcount"] = torch.zeros(etot + 1, dtype=torch.int32, device=dev)
         for batch in reads.batches(bs):
             codes = torch.from_numpy(batch.codes).to(dev).contiguous()
             lengths = torch.from_numpy(batch.lengths.astype(np.int32)).to(dev)
             out = classify_batch(self.dm, codes, lengths, G,
                                  self.maxm,
-                                 acc["rcount"] if with_rcounts else None)
+                                 acc.get("rcount"),
+                                 sc_mode=sc_mode)
+            if P:
+                q = (out.pair_lo.to(torch.int64) << 32) | out.pair_hi.to(torch.int64)
+                i = torch.searchsorted(pk, q).clamp_(max=P - 1)
+                hit = (out.pair_lo >= 0) & (pk[i] == q)
+                acc["pairacc"].index_add_(
+                    0, torch.where(hit, i, P),
+                    torch.ones_like(i, dtype=torch.int32))
             acc["cnts_u"] += out.cnts_u
             acc["cnts_d"] += out.cnts_d
             acc["nundet"] += out.nundet
@@ -115,11 +156,9 @@ class QuerySession:
             with_rcounts: bool = True, timings: Timings | None = None,
             verbose: bool = False) -> QueryCounts:
         """Classify every read.  ``with_rcounts=False`` skips the
-        per-entry counts (Type-I output needs only ``cnts_u``)."""
-        if sc_mode:
-            raise NotImplementedError(
-                "sc mode (pair counts for Type-II identification) is not "
-                "ported to cammiq_tpu_torch yet")
+        per-entry counts (Type-I output needs only ``cnts_u``); sc mode
+        takes none, as the JAX session, and fills ``pair_counts``."""
+        with_rcounts = with_rcounts and not sc_mode
         bs = self.batch_size(reads)
         if reads.num_reads:
             # trim the batch width to the longest read: every extra column
@@ -131,17 +170,24 @@ class QuerySession:
                                 total_len=reads.total_len, name=reads.name)
         with stage_timer("query", timings, verbose):
             while True:
-                host = self._run_pass(reads, bs, with_rcounts)
+                host = self._run_pass(reads, bs, with_rcounts, sc_mode)
                 if host is not None:
                     break
         eu = self.num_entries_u
-        rc = host["rcount"].astype(np.int64)
+        rc = (host["rcount"][:-1].astype(np.int64) if with_rcounts
+              else np.zeros(eu + self.num_entries_d, np.int64))
+        pair_counts = {}
+        if sc_mode:
+            keys = self._pair_keys_host
+            pa = host["pairacc"][:keys.shape[0]]
+            for k in np.nonzero(pa)[0]:
+                pair_counts[(int(keys[k] >> 32), int(keys[k] & 0xFFFFFFFF))] = int(pa[k])
         nr = reads.num_reads
         return QueryCounts(
             cnts_u=host["cnts_u"].astype(np.int64),
             cnts_d=host["cnts_d"].astype(np.int64),
             rcount_u=rc[:eu], rcount_d=rc[eu:eu + self.num_entries_d],
             nundet=int(host["nundet"]), nconf=int(host["nconf"]),
-            pair_counts={}, num_reads=nr,
+            pair_counts=pair_counts, num_reads=nr,
             mean_read_len=(reads.total_len // nr) if nr else 0,
         )

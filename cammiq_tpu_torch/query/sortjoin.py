@@ -180,21 +180,26 @@ class BatchCounts(NamedTuple):
     nundet: torch.Tensor    # int32 []
     nconf: torch.Tensor     # int32 []
     overflow_slots: torch.Tensor   # int32 []
+    pair_lo: torch.Tensor   # int32 [B] assigned pair (sc mode) or -1
+    pair_hi: torch.Tensor   # int32 [B]
 
 
 def classify_batch(dm: TorchMergedIndex, codes: torch.Tensor,
                    lengths: torch.Tensor, num_genome_slots: int, maxm: int,
-                   rcount: torch.Tensor | None = None) -> BatchCounts:
-    """Collect + case analysis for one batch (quant-mode counts).
+                   rcount: torch.Tensor | None = None,
+                   sc_mode: bool = False) -> BatchCounts:
+    """Collect + case analysis for one batch.
 
     ``rcount`` (int32 [eu+ed+1], last slot a dump) is the pass
     accumulator: rcount[e] += 1 for every distinct (read, entry) of an
-    assigned read, added in place (``part2``, sortjoin.py:1346-1359)."""
+    assigned read, added in place (``part2``, sortjoin.py:1346-1359).
+    ``sc_mode`` fills ``pair_lo/pair_hi`` with each read's assigned
+    genome pair (case_analysis); the JAX session takes no rcount then."""
     mt = collect_matches(dm, codes, lengths, maxm)
-    case = case_analysis(mt.slots, lengths, num_genome_slots)
+    case = case_analysis(mt.slots, lengths, num_genome_slots, sc_mode=sc_mode)
     if rcount is not None:
         ok = mt.distinct & case.assigned[mt.read]
         tgt = torch.where(ok, mt.gid.to(torch.int64), rcount.shape[0] - 1)
         rcount.index_add_(0, tgt, torch.ones_like(tgt, dtype=torch.int32))
     return BatchCounts(case.cnts_u, case.cnts_d, case.nundet, case.nconf,
-                       mt.overflow_slots)
+                       mt.overflow_slots, case.pair_lo, case.pair_hi)

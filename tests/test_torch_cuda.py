@@ -11,16 +11,21 @@ import numpy as np
 import pytest
 import torch
 
-from cammiq_tpu.config import QueryConfig
+from cammiq_tpu.config import BuildConfig, QueryConfig
 from cammiq_tpu.io.fastq import ReadSet
 from cammiq_tpu.query.sortjoin import build_merged_index
+from cammiq_tpu_torch.index import unique as uq
+from cammiq_tpu_torch.index.builder import build_index
 from cammiq_tpu_torch.kernels import cuckoo_verify as kcv
 from cammiq_tpu_torch.kernels import first_of_run as kfr
+from cammiq_tpu_torch.kernels import lcp_pairs as klcp
+from cammiq_tpu_torch.kernels import occ_count as kocc
 from cammiq_tpu_torch.kernels import probe_bloom as kpb
+from cammiq_tpu_torch.ops.sa import suffix_array
 from cammiq_tpu_torch.query.pipeline import QuerySession
 from cammiq_tpu_torch.query.sortjoin import TorchMergedIndex, collect_matches
 from dist_fixture import make_dist_fixture
-from torch_fixture import large_bucket_index
+from torch_fixture import large_bucket_index, pair_corpus
 
 pytestmark = pytest.mark.cuda
 
@@ -54,6 +59,101 @@ def test_scan_kernel_matches_plain(cuda_device, n, nv, lead_start):
     assert kfr.KERNEL.launches == before + 1
     for g, w in zip(got, kfr.first_of_run_scan_plain(f, *vs)):
         assert torch.equal(g, w)
+
+
+def test_scan_kernel_matches_plain_2e27(cuda_device):
+    """n = 2^27: 65,536 tiles in the one-block summary scan."""
+    n = 1 << 27
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    f = torch.rand(n, device=cuda_device, generator=g) < 1e-3
+    v = torch.randint(-(1 << 30), 1 << 30, (n,), device=cuda_device,
+                      dtype=torch.int32, generator=g)
+    (got,) = kfr.first_of_run_scan(f, v)
+    (want,) = kfr.first_of_run_scan_plain(f, v)
+    assert torch.equal(got, want)
+
+
+def _repeat_text(rng, n, rep):
+    """Random bases with a `rep`-base block copied at several places, some
+    copies overlapping the end, so LCPs reach thousands of bases."""
+    s = rng.integers(0, 4, n).astype(np.uint8)
+    block = s[:rep].copy()
+    for at in rng.integers(rep, n - rep // 2, 12):
+        k = min(rep, n - at)
+        s[at:at + k] = block[:k]
+    return s
+
+
+@pytest.mark.parametrize("kind,n,clamp", [("random", 100_000, 0xFFFF),
+                                          ("repeats", 60_000, 0xFFFF),
+                                          ("repeats", 60_000, 1000),
+                                          ("random", 9, 0xFFFF)])
+def test_lcp_pairs_kernel_matches_plain(cuda_device, kind, n, clamp):
+    rng = np.random.default_rng(n + clamp)
+    s = (rng.integers(0, 4, n).astype(np.uint8) if kind == "random"
+         else _repeat_text(rng, n, 5000))
+    text = torch.from_numpy(s).to(cuda_device)
+    sa = suffix_array(text)
+    before = klcp.KERNEL.launches
+    got = klcp.lcp_pairs(text, sa, clamp)
+    assert klcp.KERNEL.launches == before + 1
+    want = klcp.lcp_pairs_plain(text, sa, clamp)
+    assert torch.equal(got, want)
+    if kind == "repeats":
+        assert int(got.max()) >= min(clamp, 4000)
+        # a run of ranks alone
+        assert torch.equal(klcp.lcp_pairs(text, sa[777:9999], clamp),
+                           klcp.lcp_pairs_plain(text, sa[777:9999], clamp))
+
+
+@pytest.fixture(scope="module")
+def build_stages():
+    """The device build's arrays for a corpus with planted genome pairs,
+    computed on the card (the plain stages around the kernels)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    corpus = pair_corpus(7, ng=6, glen=3000, seg=400)
+    text = torch.from_numpy(corpus.seq.copy()).to(dev)
+    sa = suffix_array(text)
+    lcp = klcp.lcp_pairs(text, sa)
+    gsa = uq.compute_gsa(sa, corpus.ref_pos, corpus.ref_id)
+    lcp0 = uq.unique_lcp0(gsa, lcp, 11)
+    dl, g2 = uq.doubly_lcp0(sa, gsa, lcp, 11, 60)
+    return sa, lcp, gsa, lcp0, dl, g2[sa.long()]
+
+
+def test_occ_count_kernel_matches_plain(cuda_device, build_stages):
+    sa, lcp, gsa, lcp0, dl, g2 = build_stages
+    before = kocc.KERNEL.launches
+    got = kocc.occ_count_unique(lcp, lcp0, gsa)
+    assert torch.equal(got, kocc.occ_count_unique_plain(lcp, lcp0, gsa))
+    end_excl = int(torch.nonzero(gsa != gsa[0])[0]) - 1
+    for ulmax, ee in ((60, end_excl), (60, 0), (1 << 20, 5)):
+        got_d = kocc.occ_count_doubly(lcp, dl, gsa, g2, ulmax, ee)
+        want_d = kocc.occ_count_doubly_plain(lcp, dl, gsa, g2, ulmax, ee)
+        assert all(torch.equal(a, b) for a, b in zip(got_d, want_d))
+    assert kocc.KERNEL.launches == before + 4
+    assert int(got_d[1].max()) > 0
+
+
+def test_occ_count_kernel_saturates(cuda_device):
+    """Long same-genome runs with high LCPs: the walks hit their step
+    bounds (255 and 511) in both directions."""
+    n = 4000
+    gsa = torch.ones(n, dtype=torch.int32)
+    gsa[1500:1700] = 2
+    lcp = torch.full((n + 1,), 80, dtype=torch.int32)
+    lcp[0] = lcp[n] = 0
+    lcp[2500] = 10
+    lcp0 = torch.full((n,), 30, dtype=torch.int32)
+    g2 = torch.full((n,), 2, dtype=torch.int32)
+    args = [x.to(cuda_device) for x in (lcp, lcp0, gsa)]
+    assert torch.equal(kocc.occ_count_unique(*args),
+                       kocc.occ_count_unique_plain(*args))
+    for a, b in zip(kocc.occ_count_doubly(*args, g2.to(cuda_device), 60, 3),
+                    kocc.occ_count_doubly_plain(*args, g2.to(cuda_device), 60, 3)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("h,Lp", [(12, 100), (20, 100), (26, 100), (26, 37),
@@ -119,6 +219,36 @@ def test_session_cuda_matches_cpu(cuda_device, dist_index):
     assert (runs[1].nundet, runs[1].nconf) == (runs[0].nundet, runs[0].nconf)
 
 
+def test_session_sc_mode_cuda_matches_cpu(cuda_device, dist_index):
+    """sc mode: counts and pair counts through the kernels equal the plain
+    path's, also after widening from maxm=1."""
+    art, _, rs, G = dist_index
+    cfg = QueryConfig(h=art.unique_index.h, batch_size=256)
+    runs = []
+    for dev in ("cpu", cuda_device):
+        sess = QuerySession(art.unique_index, art.doubly_index, G, cfg, device=dev)
+        sess.maxm = 1
+        runs.append(sess.run(rs, sc_mode=True))
+    for f in ("cnts_u", "cnts_d"):
+        np.testing.assert_array_equal(getattr(runs[1], f), getattr(runs[0], f))
+    assert (runs[1].nundet, runs[1].nconf) == (runs[0].nundet, runs[0].nconf)
+    assert runs[1].pair_counts == runs[0].pair_counts
+
+
+def test_build_index_cuda_matches_cpu(cuda_device):
+    corpus = pair_corpus(8, ng=6, glen=3000, seg=400)
+    cfg = BuildConfig(k=20, L=100, Lmax=40, h=20, mode="both")
+    want = build_index(corpus, cfg, device="cpu")
+    got = build_index(corpus, cfg, device=cuda_device)
+    for name in ("unique_index", "doubly_index"):
+        for f in ("key_words", "length", "rid1", "rid2", "ucount1", "ucount2"):
+            np.testing.assert_array_equal(getattr(getattr(got, name), f),
+                                          getattr(getattr(want, name), f))
+    np.testing.assert_array_equal(got.ulm_count_u, want.ulm_count_u)
+    np.testing.assert_array_equal(got.ulm_count_d, want.ulm_count_d)
+    assert want.doubly_index.num_entries > 0
+
+
 def test_wrappers_reject_bad_inputs(cuda_device):
     codes = torch.zeros((4, 30), dtype=torch.int8, device=cuda_device)
     bloom = torch.zeros(1 << 10, dtype=torch.int32, device=cuda_device)
@@ -132,3 +262,11 @@ def test_wrappers_reject_bad_inputs(cuda_device):
     with pytest.raises(ValueError):
         kfr.first_of_run_scan(flags, torch.zeros(7, dtype=torch.int32,
                                                  device=cuda_device))
+    text = torch.zeros(16, dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(TypeError):
+        klcp.lcp_pairs(text, torch.zeros(16, dtype=torch.int64, device=cuda_device))
+    with pytest.raises(ValueError):
+        klcp.lcp_pairs(text, torch.zeros(17, dtype=torch.int32, device=cuda_device))
+    i32 = torch.zeros(8, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        kocc.occ_count_unique(i32, i32, i32)          # lcp needs n + 1

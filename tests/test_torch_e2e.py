@@ -13,9 +13,10 @@ from cammiq_tpu.cli import main as jax_cli_main
 from cammiq_tpu.models.output import parse_quant_output
 from cammiq_tpu.tools.simulate import simulate
 from cammiq_tpu_torch.cli import main as cli_main
+from torch_fixture import ALPHA, pair_genomes
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ALPHA = np.frombuffer(b"ACGT", dtype=np.uint8)
+BUILD_FLAGS = ["--both", "-k", "20", "-L", "100", "-Lmax", "40", "-h", "20"]
 
 # small tensors: intra-op threads would only contend with other test workers
 torch.set_num_threads(1)
@@ -91,8 +92,96 @@ def test_cuda_without_card_raises(toy):
 def test_unported_modes_raise(toy):
     root, args = toy
     with pytest.raises(NotImplementedError):
-        cli_main(["--device", "cpu", "--query", "--read_cnts",
-                  "--doubly_unique", *args, "-o", str(root / "t2.out")])
-    with pytest.raises(NotImplementedError):
         cli_main(["--device", "cpu", "--query", "-t", "2", *args,
                   "-o", str(root / "t.out")])
+
+
+@pytest.fixture(scope="module")
+def pair_toy(tmp_path_factory):
+    """5 genomes x 2000 bp with a 300 bp segment planted in each pair of
+    neighbours, indexed by cammiq_tpu.cli (numpy engine), and 3000
+    simulated reads."""
+    root = tmp_path_factory.mktemp("torch_pairdb")
+    gs, _ = pair_genomes(5, glen=2000, seg=300)
+    db = root / "fasta"
+    db.mkdir()
+    with open(root / "genome_map.out", "w") as m:
+        for g, x in enumerate(gs):
+            s = ALPHA[x].tobytes().decode()
+            with open(db / f"genome{g + 1}.fasta", "w") as f:
+                f.write(f">g{g + 1} contig1\n")
+                f.writelines(s[i:i + 80] + "\n" for i in range(0, len(s), 80))
+            m.write(f"genome{g + 1}.fasta\t{g + 1}\t{1000 + g}\tGenome_{g + 1}\n")
+    mapf = str(root / "genome_map.out")
+    idx = root / "idx"
+    jax_cli_main(["--build", *BUILD_FLAGS, "-f", mapf, "-D", str(db) + "/",
+                  "-i", str(idx / "index_u.npz"), str(idx / "index_d.npz"),
+                  "--engine", "numpy"])
+    fq = str(root / "reads.fq")
+    simulate(mapf, str(db), fq, str(root / "truth.out"), num_reads=3000,
+             L=100, erate=0.01, dist="uniform", seed=3)
+    return root, mapf, str(db) + "/", idx, fq
+
+
+def test_type2_output_byte_identical(pair_toy):
+    from cammiq_tpu.config import QueryConfig
+    from cammiq_tpu.index.table import load_flat_index_pair
+    from cammiq_tpu.io.fastq import read_fastq
+    from cammiq_tpu.query.pipeline import QuerySession as JaxSession
+
+    root, mapf, _, idx, fq = pair_toy
+    iu, idd = str(idx / "index_u.npz"), str(idx / "index_d.npz")
+    index_u, index_d = load_flat_index_pair(iu, idd)
+    want = JaxSession(index_u, index_d, 6, QueryConfig(h=20),
+                      engine="sortjoin").run(read_fastq(fq), sc_mode=True)
+    assert want.pair_counts and max(want.pair_counts.values()) > 0
+    args = ["--query", "--read_cnts", "--doubly_unique", "-f", mapf, "-i", iu,
+            idd, "-q", fq, "-e", "0.01"]
+    ours, ref = root / "t2_torch.out", root / "t2_jax.out"
+    cli_main(["--device", "cpu", *args, "-o", str(ours)])
+    jax_cli_main([*args, "-o", str(ref)])
+    assert ours.read_bytes() == ref.read_bytes()
+    assert ours.read_text().startswith("QUERY/TAXID\t1000\t1001")
+
+
+def test_device_build_cli_never_imports_jax(pair_toy):
+    """``--build --engine jax`` runs the port's device build, here on the
+    CPU, without importing jax, and writes the tables and meta files of
+    the host build."""
+    from cammiq_tpu.index.table import load_flat_index
+
+    root, mapf, db, idx, _ = pair_toy
+    out = root / "idx_torch"
+    argv = ["--device", "cpu", "--build", *BUILD_FLAGS, "--engine", "jax",
+            "-f", mapf, "-D", db, "-i", str(out / "index_u.npz"),
+            str(out / "index_d.npz")]
+    code = ("import sys; from cammiq_tpu_torch.cli import main; "
+            f"main({argv!r}); "
+            "assert 'jax' not in sys.modules, 'jax imported'")
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    r = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "Time for computing OCC array (doubly)" in r.stderr
+    for name in ("index_u.npz", "index_d.npz"):
+        got, want = load_flat_index(str(out / name)), load_flat_index(str(idx / name))
+        for f in ("key_words", "length", "rid1", "rid2", "ucount1", "ucount2",
+                  "table_lo", "table_hi", "table_start", "table_count"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
+                                          err_msg=f"{name}.{f}")
+        assert got.num_entries > 0
+    for name in ("genome_lengths.out", "unique_lmer_count_u.out",
+                 "unique_lmer_count_d.out"):
+        assert (out / name).read_bytes() == (idx / name).read_bytes(), name
+
+
+def test_device_build_cli_without_card_raises(pair_toy):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    root, mapf, db, _, _ = pair_toy
+    out = root / "never"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_main(["--device", "cuda", "--build", *BUILD_FLAGS, "--engine", "jax",
+                  "-f", mapf, "-D", db, "-i", str(out / "index_u.npz"),
+                  str(out / "index_d.npz")])
+    assert not out.exists()

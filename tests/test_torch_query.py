@@ -21,7 +21,7 @@ from cammiq_tpu_torch.query.classify import MatchSlots, case_analysis
 from cammiq_tpu_torch.query.pipeline import QuerySession
 from cammiq_tpu_torch.query.sortjoin import TorchMergedIndex, collect_matches
 from dist_fixture import make_dist_fixture
-from torch_fixture import flat_table, large_bucket_index, rc
+from torch_fixture import ALPHA, flat_table, large_bucket_index, pair_genomes, rc
 
 SLOT_FIELDS = ("slots", "rid1", "rid2", "in_u")
 
@@ -133,9 +133,6 @@ def test_case_analysis_matches_jax(dist_index, sc_mode):
     assert int(got.assigned.sum()) > 0 and int(got.nconf) > 0
 
 
-ALPHA = np.frombuffer(b"ACGT", dtype=np.uint8)
-
-
 @pytest.fixture(scope="module")
 def session_setup():
     """test_sortjoin.py's 5-genome index with a shared segment and 300
@@ -213,8 +210,75 @@ def test_session_unique_only_matches_jax(session_setup):
     _assert_counts_equal(got, want)
 
 
-def test_session_sc_mode_not_ported(session_setup):
-    art, rs, G, cfg, _ = session_setup
+@pytest.fixture(scope="module")
+def pair_setup():
+    """A 5-genome index whose doubly table holds planted genome pairs, 400
+    noisy reads of both strands (half of them from planted segments), and
+    the JAX session's sc-mode counts, which must hold pairs."""
+    gs, planted = pair_genomes(21, glen=500, seg=100)
+    corpus = corpus_from_sequences([[ALPHA[x].tobytes()] for x in gs])
+    art = build_index(corpus, BuildConfig(k=12, L=60, Lmax=30, h=12, mode="both"),
+                      engine="numpy")
+    rng = np.random.default_rng(22)
+    reads = []
+    for r in range(400):
+        if r % 2:
+            g, at = planted[int(rng.integers(len(planted)))]
+            p = at + int(rng.integers(0, 41))
+        else:
+            g, p = int(rng.integers(5)), int(rng.integers(0, 440))
+        x = gs[g][p:p + 60].copy()
+        if rng.random() < 0.5:
+            x = 3 - x[::-1]
+        err = rng.random(60) < 0.02
+        x[err] = rng.integers(0, 4, int(err.sum()))
+        reads.append(ALPHA[x].tobytes())
+    rs = reads_from_arrays(reads, max_len=64)
+    G = 6
+    cfg = QueryConfig(h=12, batch_size=128)
+    want = JaxSession(art.unique_index, art.doubly_index, G, cfg,
+                      engine="sortjoin").run(rs, sc_mode=True)
+    assert len(want.pair_counts) >= 2 and want.cnts_d.sum() > 0
+    return art, rs, G, cfg, want
+
+
+def _assert_sc_counts_equal(got, want):
+    _assert_counts_equal(got, want)
+    assert got.pair_counts == want.pair_counts
+
+
+def test_session_sc_mode_not_ported(pair_setup):
+    """sc mode on an npz session: QueryCounts, pair_counts included, equal
+    the JAX session's."""
+    art, rs, G, cfg, want = pair_setup
     sess = QuerySession(art.unique_index, art.doubly_index, G, cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        sess.run(rs, sc_mode=True)
+    _assert_sc_counts_equal(sess.run(rs, sc_mode=True), want)
+
+
+@pytest.mark.parametrize("source,maxm", [("artifact", 16), ("npz", 1),
+                                         ("artifact", 1)])
+def test_session_sc_mode_matches_jax(pair_setup, tmp_path, source, maxm):
+    """The artifact's pair table (prec rows of the doubly entries), and a
+    pass that overflows at maxm=1 and re-runs widened."""
+    art, rs, G, cfg, want = pair_setup
+    if source == "npz":
+        sess = QuerySession(art.unique_index, art.doubly_index, G, cfg, device="cpu")
+    else:
+        m = sj.build_merged_index(art.unique_index, art.doubly_index)
+        save_merged_artifact(m, art.unique_index, art.doubly_index, str(tmp_path))
+        sess = QuerySession.from_artifact(load_merged_artifact(str(tmp_path)), G,
+                                          cfg, device="cpu")
+    sess.maxm = maxm
+    _assert_sc_counts_equal(sess.run(rs, sc_mode=True), want)
+    assert sess.maxm >= 2
+
+
+def test_session_sc_mode_without_doubly(session_setup):
+    """No doubly table: no pairs, and sc mode runs with an empty table."""
+    art, rs, G, cfg, _ = session_setup
+    want = JaxSession(art.unique_index, None, G, cfg, engine="sortjoin").run(
+        rs, sc_mode=True)
+    got = QuerySession(art.unique_index, None, G, cfg, device="cpu").run(
+        rs, sc_mode=True)
+    _assert_sc_counts_equal(got, want)
+    assert got.pair_counts == {}

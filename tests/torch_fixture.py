@@ -9,6 +9,33 @@ from cammiq_tpu.index.table import build_flat_index_from_entries
 from cammiq_tpu.query.sortjoin import build_merged_index
 
 
+ALPHA = np.frombuffer(b"ACGT", dtype=np.uint8)
+
+
+def pair_genomes(seed, ng=5, glen=400, seg=90):
+    """ng random genomes (int base codes) with one segment planted in
+    exactly two genomes for each pair (g, g + 1 mod ng), so the doubly
+    index has content.  Returns (genomes, [(genome, start)] of every
+    planted copy)."""
+    rng = np.random.default_rng(seed)
+    gs = [rng.integers(0, 4, glen) for _ in range(ng)]
+    planted = []
+    for g in range(ng):
+        s = rng.integers(0, 4, seg)
+        for h in (g, (g + 1) % ng):
+            at = int(rng.integers(0, glen - seg))
+            gs[h][at:at + seg] = s
+            planted.append((h, at))
+    return gs, planted
+
+
+def pair_corpus(seed, **kw):
+    from cammiq_tpu.io.fasta import corpus_from_sequences
+
+    gs, _ = pair_genomes(seed, **kw)
+    return corpus_from_sequences([[ALPHA[x].tobytes()] for x in gs])
+
+
 def rc(codes):
     return [3 - c for c in reversed(codes)]
 

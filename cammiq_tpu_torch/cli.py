@@ -1,14 +1,14 @@
 """Command line: ``python -m cammiq_tpu_torch.cli [--device DEV] <flags>``.
 
-The flags are those of ``cammiq_tpu.cli`` (parsed by its ``parse_args``).
-``--device`` (default ``cuda``) picks the torch device; a missing card
-under ``cuda`` raises.
+The flags are those of ``cammiq_tpu.cli``; ``_err`` and ``parse_args`` are
+copies of it (27-170).  ``--device`` (default ``cuda``) picks the torch
+device; a missing card under ``cuda`` raises.
 
-``--build --engine jax`` runs this package's device index build
-(``index/builder.py``) on ``--device``, with the outputs of
-``cammiq_tpu.cli.run_build`` (``.npz`` tables, meta files, ``--merged``).
-Every other engine, and ``--build_hosts > 1`` (the host distributed
-builder), runs the shared host build, ``cammiq_tpu.cli.run_build``.
+``--build`` runs this package's index build (``index/builder.py``) on
+``--device`` for every ``--engine`` (the JAX package's engines give the
+same index), with the outputs of ``cammiq_tpu.cli.run_build`` (``.npz``
+tables, meta files, ``--merged``).  ``--build_hosts > 1`` (the host
+distributed builder) is not ported yet and raises NotImplementedError.
 
 ``--query`` runs this package's query session and solvers:
 
@@ -30,8 +30,153 @@ from typing import List, Optional
 
 import numpy as np
 
-from cammiq_tpu.cli import _err, parse_args, run_build
-from cammiq_tpu.config import BuildConfig, FineParams, IdentFineParams, QueryConfig
+from .config import BuildConfig, FineParams, IdentFineParams, QueryConfig
+
+
+def _err(msg: str) -> None:
+    print(msg, file=sys.stderr)
+    sys.exit(1)
+
+
+def parse_args(argv: List[str]) -> dict:
+    a = {
+        "mode": None, "idx_option": None, "id_mode": 0,
+        "K": None, "L": None, "Lmax": None, "h": None, "h1": None, "h2": None,
+        "fa_dir": "", "fm_name": "", "fq_dir": "", "fq_names": [],
+        "fi_u": "", "fi_d": "", "output": "", "erate": 0.0, "t": 1,
+        "min_rl": 0, "debug": False,
+        "read_cnt_thres": -1.0, "easy_thres": -1.0, "ilp_eps": -1.0,
+        "ilp_alpha": -1.0, "max_cov": -1.0,
+        "u_thres": -1.0, "d_thres": -1.0,
+        "engine": "auto", "profile": "", "model_shards": 1,
+        "build_hosts": 0,
+        "ilp_time_limit": 10800.0, "ilp_enum_cap": 8, "merged": "",
+        "exact_sa": False,
+    }
+    i = 0
+    while i < len(argv):
+        v = argv[i]
+        if v == "--help":
+            print(__doc__)
+            sys.exit(0)
+        elif v == "--build":
+            a["mode"] = 0
+        elif v == "--query":
+            a["mode"] = 1
+        elif v == "--unique":
+            if a["mode"] == 0:
+                a["idx_option"] = "unique"
+        elif v == "--doubly_unique":
+            if a["mode"] == 0:
+                a["idx_option"] = "doubly_unique"
+            else:
+                a["id_mode"] = 2
+        elif v == "--both":
+            a["idx_option"] = "both"
+        elif v == "--read_cnts":
+            a["id_mode"] = max(a["id_mode"], 1)
+        elif v == "--enable_ilp_display":
+            a["debug"] = True
+        elif v == "--read_length_filter":
+            i += 1
+            a["min_rl"] = int(argv[i])
+        elif v == "--read_cnt_thres":
+            i += 1
+            a["read_cnt_thres"] = float(argv[i])
+        elif v == "--easy_to_identify_thres":
+            i += 1
+            a["easy_thres"] = float(argv[i])
+        elif v == "--ilp_epsilon":
+            i += 1
+            a["ilp_eps"] = float(argv[i])
+        elif v == "--ilp_alpha":
+            i += 1
+            a["ilp_alpha"] = float(argv[i])
+        elif v == "--max_depth":
+            i += 1
+            a["max_cov"] = float(argv[i])
+        elif v == "--merged":
+            i += 1
+            a["merged"] = argv[i]
+        elif v == "--ilp_time_limit":
+            i += 1
+            a["ilp_time_limit"] = float(argv[i])
+        elif v == "--ilp_enum_cap":
+            i += 1
+            a["ilp_enum_cap"] = int(argv[i])
+        elif v == "--unique_read_cnt_thres":
+            i += 1
+            a["u_thres"] = float(argv[i])
+        elif v == "--doubly_unique_read_cnt_thres":
+            i += 1
+            a["d_thres"] = float(argv[i])
+        elif v == "--engine":
+            i += 1
+            a["engine"] = argv[i]
+        elif v == "--exact_sa":
+            a["exact_sa"] = True
+        elif v == "--model_shards":
+            i += 1
+            a["model_shards"] = int(argv[i])
+        elif v == "--build_hosts":
+            i += 1
+            a["build_hosts"] = int(argv[i])
+        elif v == "--profile":
+            i += 1
+            a["profile"] = argv[i]
+        elif v == "-k":
+            i += 1
+            a["K"] = int(argv[i])
+        elif v == "-L":
+            i += 1
+            a["L"] = int(argv[i])
+        elif v == "-Lmax":
+            i += 1
+            a["Lmax"] = int(argv[i])
+        elif v == "-h":
+            vals = []
+            while i + 1 < len(argv) and not argv[i + 1].startswith("-"):
+                i += 1
+                vals.append(int(argv[i]))
+            if len(vals) == 1:
+                a["h"] = vals[0]
+            elif len(vals) >= 2:
+                a["h1"], a["h2"] = vals[0], vals[1]
+        elif v == "-f":
+            i += 1
+            a["fm_name"] = argv[i]
+        elif v == "-D":
+            i += 1
+            a["fa_dir"] = argv[i]
+        elif v == "-Q":
+            i += 1
+            a["fq_dir"] = argv[i]
+        elif v == "-q":
+            while i + 1 < len(argv) and not argv[i + 1].startswith("-"):
+                i += 1
+                a["fq_names"].append(argv[i])
+        elif v == "-i":
+            vals = []
+            while i + 1 < len(argv) and not argv[i + 1].startswith("-"):
+                i += 1
+                vals.append(argv[i])
+            if vals:
+                a["fi_u"] = vals[0]
+            if len(vals) > 1:
+                a["fi_d"] = vals[1]
+        elif v == "-o":
+            i += 1
+            a["output"] = argv[i]
+        elif v == "-e":
+            i += 1
+            a["erate"] = float(argv[i])
+        elif v == "-t":
+            i += 1
+            a["t"] = int(argv[i])
+        else:
+            _err(f"Failed to recognize option: {v}.")
+        i += 1
+    return a
 
 
 def split_device(argv: List[str]) -> tuple[str, List[str]]:
@@ -51,16 +196,18 @@ def split_device(argv: List[str]) -> tuple[str, List[str]]:
     return device, rest
 
 
-def run_device_build(a: dict, device: str) -> None:
-    """``--build --engine jax``: the single-host branch of
-    ``cammiq_tpu.cli.run_build`` with the device stages on ``device``."""
-    from cammiq_tpu.index.builder import write_meta_outputs
-    from cammiq_tpu.index.table import save_flat_index
-    from cammiq_tpu.io.fasta import build_corpus, list_fasta_dir, read_map_file
-
+def run_build(a: dict, device: str) -> None:
+    """``--build``: the single-host branch of ``cammiq_tpu.cli.run_build``
+    with the device stages on ``device``, whatever ``--engine`` names."""
     from .device import resolve_device
-    from .index.builder import build_index
+    from .index.builder import build_index, write_meta_outputs
+    from .index.table import save_flat_index
+    from .io.fasta import build_corpus, list_fasta_dir, read_map_file
 
+    if a["build_hosts"] > 1:
+        raise NotImplementedError(
+            "the distributed host build (--build_hosts > 1) is not ported "
+            "to cammiq_tpu_torch yet")
     dev = resolve_device(device)
     cfg = BuildConfig(
         k=a["K"] or 26,
@@ -101,8 +248,8 @@ def run_device_build(a: dict, device: str) -> None:
     if a["merged"]:
         if art.unique_index is None:
             _err("--merged requires a unique index (--unique or --both).")
-        from cammiq_tpu.index.artifact import save_merged_artifact
-        from cammiq_tpu.query.sortjoin import build_merged_index
+        from .index.artifact import save_merged_artifact
+        from .query.merged import build_merged_index
 
         m = build_merged_index(art.unique_index, art.doubly_index)
         save_merged_artifact(m, art.unique_index, art.doubly_index,
@@ -113,16 +260,14 @@ def run_device_build(a: dict, device: str) -> None:
 
 
 def run_query(a: dict, device: str) -> None:
-    from cammiq_tpu.index.artifact import is_merged_artifact, load_merged_artifact
-    from cammiq_tpu.index.table import load_flat_index_pair
-    from cammiq_tpu.io.fastq import list_fastq_dir, read_fastq
-    from cammiq_tpu.io.mapfile import load_genome_lengths, load_smap
-    from cammiq_tpu.models import output as outmod
-    from cammiq_tpu.models.ident import solve_ident
-    from cammiq_tpu.models.quant import build_problem
-
     from .device import resolve_device
-    from .models.quant import solve_quant
+    from .index.artifact import is_merged_artifact, load_merged_artifact
+    from .index.table import load_flat_index_pair
+    from .io.fastq import list_fastq_dir, read_fastq
+    from .io.mapfile import load_genome_lengths, load_smap
+    from .models import output as outmod
+    from .models.ident import solve_ident
+    from .models.quant import build_problem, solve_quant
     from .query.pipeline import QuerySession
 
     if a["t"] > 1 or a["model_shards"] > 1:
@@ -216,10 +361,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     device, rest = split_device(list(sys.argv[1:] if argv is None else argv))
     a = parse_args(rest)
     if a["mode"] == 0:
-        if a["engine"] == "jax" and a["build_hosts"] <= 1:
-            run_device_build(a, device)
-        else:
-            run_build(a)
+        run_build(a, device)
     elif a["mode"] == 1:
         run_query(a, device)
     else:

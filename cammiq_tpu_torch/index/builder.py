@@ -2,17 +2,18 @@
 
 Port of ``cammiq_tpu/index/builder.py:build_index(engine="jax")``
 (119-253): suffix array, LCP, GSA, LCP0, OCC and MU run on the device;
-the sparsified selection (``cammiq_tpu.index.sparsify.select_substrings``)
-and the flat tables (``cammiq_tpu.index.table.build_flat_index``) run on
-the host, imported.  The input is the same host ``Corpus`` the JAX package
-takes, and the result is its ``BuildArtifacts``, stage timings included,
-so ``save_index`` and ``write_meta_outputs`` apply unchanged.
+the sparsified selection (``index/sparsify.py:select_substrings``) and the
+flat tables (``index/table.py:build_flat_index``) run on the host.  The
+input is a host ``Corpus`` (``io/fasta.py``) and the result a
+``BuildArtifacts``, stage timings included; ``BuildArtifacts``,
+``write_meta_outputs`` and ``save_index`` are copies of
+``cammiq_tpu/index/builder.py`` (34-42, 266-291).
 
 Selection runs with ``engine="auto"``: the C++ sweep where the native
 library is built (the host build's engine at scale), else the vectorised
 numpy path.  The JAX device engine passes ``"fast"``; the engines give the
-same output (``sparsify.py:95-99``), and the port's tests hold the whole
-index to ``build_index(engine="jax")``.
+same output (``select_substrings``' docstring), and the port's tests hold
+the whole index to ``cammiq_tpu``'s ``build_index(engine="jax")``.
 
 Not ported: ``stage_dir`` (disk staging) and ``sa_hosts`` (the sharded
 host suffix sort) of the JAX ``build_index``.
@@ -21,22 +22,34 @@ host suffix sort) of the JAX ``build_index``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import os
 import sys
+from typing import Optional
 
 import numpy as np
 import torch
 
-from cammiq_tpu.config import BuildConfig
-from cammiq_tpu.index.builder import BuildArtifacts
-from cammiq_tpu.index.sparsify import select_substrings
-from cammiq_tpu.index.table import build_flat_index
-from cammiq_tpu.io.fasta import Corpus
-from cammiq_tpu.utils.timing import Timings, stage_timer
-
+from ..config import BuildConfig
 from ..device import resolve_device
+from ..io.fasta import Corpus
 from ..kernels.lcp_pairs import LCP_CLAMP, lcp_pairs
 from ..ops.sa import suffix_array
+from ..utils.timing import Timings, stage_timer
 from . import unique as uq
+from .sparsify import select_substrings
+from .table import FlatIndex, build_flat_index, save_flat_index
+
+
+@dataclasses.dataclass
+class BuildArtifacts:
+    unique_index: Optional[FlatIndex]
+    doubly_index: Optional[FlatIndex]
+    ulm_count_u: Optional[np.ndarray]   # per-file unique-L-mer counts
+    ulm_count_d: Optional[np.ndarray]
+    genome_lengths: np.ndarray          # per-file
+    corpus: Corpus
+    timings: Timings
 
 
 def _host(t: torch.Tensor, dtype=None) -> np.ndarray:
@@ -125,3 +138,31 @@ def build_index(corpus: Corpus, cfg: BuildConfig, device="cuda",
         ulm_count_u=ulm_u, ulm_count_d=ulm_d,
         genome_lengths=corpus.genome_lengths(), corpus=corpus,
         timings=timings)
+
+
+def write_meta_outputs(art: BuildArtifacts, outdir: str) -> None:
+    """genome_lengths.out + unique_lmer_count_{u,d}.out, byte-compatible
+    with the reference (src/build.cpp:671-738)."""
+    os.makedirs(outdir, exist_ok=True)
+    rid = art.corpus.ref_id
+    if art.ulm_count_u is not None:
+        with open(os.path.join(outdir, "unique_lmer_count_u.out"), "w") as f:
+            for i in range(len(rid)):
+                f.write(f"{int(rid[i])}\t{int(art.ulm_count_u[i])}\n")
+    if art.ulm_count_d is not None:
+        with open(os.path.join(outdir, "unique_lmer_count_d.out"), "w") as f:
+            for i in range(len(rid)):
+                f.write(f"{int(rid[i])}\t{int(art.ulm_count_d[i])}\n")
+    with open(os.path.join(outdir, "genome_lengths.out"), "w") as f:
+        gl = art.genome_lengths
+        for i in range(len(rid)):
+            f.write(f"{int(rid[i])}\t{int(gl[i])}\n")
+
+
+def save_index(art: BuildArtifacts, outdir: str) -> None:
+    os.makedirs(outdir, exist_ok=True)
+    if art.unique_index is not None:
+        save_flat_index(os.path.join(outdir, "index_u.npz"), art.unique_index)
+    if art.doubly_index is not None:
+        save_flat_index(os.path.join(outdir, "index_d.npz"), art.doubly_index)
+    write_meta_outputs(art, outdir)

@@ -5,8 +5,8 @@ bit-identical.  Arrays are int32 on the build's device, in rank order
 unless named ``*_text``; ``lcp`` is int32 [n+1] with lcp[0] = lcp[n] = 0.
 
   run_info     runs of equal GSA; the run bottom ``rb`` and top ``rt`` are
-               the first-of-run scan (``kernels/first_of_run.py``) forward,
-               and on the flipped arrays
+               the first-of-run scan (``kernels/first_of_run.py``) in index
+               mode, forward and reverse
   compute_gsa  genome of each rank (``torch.searchsorted``, side right)
   unique_lcp0, doubly_lcp0, min_unique
                segmented minima and scatters (``ops/scans.py``)
@@ -25,8 +25,7 @@ import torch
 from ..kernels.first_of_run import first_of_run_scan
 from ..kernels.occ_count import occ_count_doubly, occ_count_unique
 from ..ops.scans import segmented_cummin, segmented_cummin_rev
-
-MU_EMPTY = 0xFFFF  # cammiq_tpu/index/unique.py:MU_EMPTY
+from .sparsify import MU_EMPTY
 
 
 class Runs(NamedTuple):
@@ -45,11 +44,10 @@ def run_info(gsa: torch.Tensor) -> Runs:
     starts[1:] = gsa[1:] != gsa[:-1]
     ends = torch.ones(n, dtype=torch.bool, device=dev)
     ends[:-1] = starts[1:]
-    idx = torch.arange(n, dtype=torch.int32, device=dev)
-    (rb,) = first_of_run_scan(starts, idx)
-    # rt[i] = the first end at or after i: the same scan from the back
-    (rt,) = first_of_run_scan(ends.flip(0), idx.flip(0))
-    rt = rt.flip(0)
+    # rb[i] = the last start at or before i, rt[i] = the first end at or
+    # after i: the scan in index mode, forward and reverse
+    (rb,) = first_of_run_scan(starts)
+    (rt,) = first_of_run_scan(ends, reverse=True)
     rid = torch.cumsum(starts, 0, dtype=torch.int32) - 1
     return Runs(starts, ends, rb, rt, rid, int(rid[-1]) + 1)
 

@@ -8,8 +8,8 @@ Replaces the blockwise compare of ``cammiq_tpu/ops/lcp.py:lcp_jax`` with
     out[i] = min(lcp(text[sa[i-1]:], text[sa[i]:]), clamp)   0 < i < m
     out[0] = out[m] = 0;  positions at or past n never match.
 
-Kernel: ``csrc/lcp_pairs.cu`` (one thread per pair, 8 bytes a step; see
-the source note).
+Kernel: ``csrc/lcp_pairs.cu`` (short pairs one thread each, long pairs one
+warp each, in one call; see the source note).
 """
 
 from __future__ import annotations
@@ -20,7 +20,9 @@ from .build import I32, I64, VP, CudaKernel, check_tensor, stream_ptr
 
 LCP_CLAMP = 0xFFFF  # cammiq_tpu/ops/lcp.py:LCP_CLAMP (the reference's uint16)
 
-KERNEL = CudaKernel("cammiq_lcp_pairs", [VP, I64, VP, I64, I32, VP, VP])
+KERNEL = CudaKernel("cammiq_lcp_pairs", [VP, I64, VP, I64, I32, VP, VP, VP])
+
+_PAD_WORDS = 66  # the warp phase reads up to 65 words past a position < n
 
 _CHUNK_BYTES = 1 << 24  # bytes gathered per chunk of the plain version
 
@@ -80,10 +82,12 @@ def lcp_pairs(text: torch.Tensor, sa: torch.Tensor,
         raise ValueError(f"lcp_pairs: n={n}, m={m}; need m <= n < 2^31")
     if not 0 <= clamp < 2**31:
         raise ValueError(f"lcp_pairs: clamp {clamp} out of range")
-    nw = (n + 7) // 8 + 2
+    nw = (n + 7) // 8 + _PAD_WORDS
     words = torch.zeros(nw * 8, dtype=torch.uint8, device=dev)
     words[:n] = text
     out = torch.empty(m + 1, dtype=torch.int32, device=dev)
+    # the long pairs' worklist (capacity m), then its length and cursor
+    work = torch.empty(m + 2, dtype=torch.int32, device=dev)
     KERNEL(words.data_ptr(), n, sa.data_ptr(), m, clamp, out.data_ptr(),
-           stream_ptr(dev))
+           work.data_ptr(), stream_ptr(dev))
     return out

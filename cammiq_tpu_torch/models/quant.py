@@ -4,8 +4,9 @@ Port of ``cammiq_tpu/models/quant.py:solve_quant`` (257-713): the reference
 MIQP (src/query.cpp:1082-1298) as a relaxed box-QP by FISTA projected
 gradient + augmented Lagrangian, then the windowed 2^m EXIST-subset sweep
 and the exact branch-and-bound with the certified host bound.  The problem
-is built on the host by ``cammiq_tpu.models.quant.build_problem`` and the
-B&B bound is ``_make_host_bound``, both imported unchanged.
+is built on the host by ``build_problem`` and the B&B bound is
+``_make_host_bound``: with ``prefilter`` and ``QuantProblem`` they are
+copies of ``cammiq_tpu/models/quant.py`` (41-255).
 
 Differences from the JAX version, none of which changes what is solved:
   * the quadratic's gradient is written out; the Hessian-vector product of
@@ -22,21 +23,239 @@ Differences from the JAX version, none of which changes what is solved:
 
 from __future__ import annotations
 
+import dataclasses
 import heapq
 import sys
 import time
 import warnings
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from cammiq_tpu.models.quant import QuantProblem, _make_host_bound
-
+from ..config import FineParams
 from ..device import resolve_device
+from ..index.table import FlatIndex
 
 _GRID = 256
 _GRID_ROUNDS = 3
+
+
+def prefilter(
+    cnts_u: np.ndarray,
+    cnts_d: np.ndarray,
+    nus: np.ndarray,
+    nds: np.ndarray,
+    fine: FineParams,
+) -> np.ndarray:
+    """exist0 bool [n_species+1] (slot 0 False).  Exact reference logic
+    (src/query.cpp:1100-1133): both the unique- and doubly-count tests use
+    the *nus* >= easy_to_identify_thres condition."""
+    n = cnts_u.shape[0]
+    exist = np.ones(n, dtype=bool)
+    thr = fine.read_cnt_thres
+    alpha = fine.ilp_alpha
+    easy = nus >= fine.easy_to_identify_thres
+
+    d1u = cnts_u - thr
+    d2u = cnts_u - nus * alpha
+    exist &= np.where(easy, (d1u >= 0) & (d2u >= 0), d2u >= 0)
+    d1d = cnts_d - thr
+    d2d = cnts_d - nds * alpha
+    exist &= np.where(easy, (d1d >= 0) & (d2d >= 0), d2d >= 0)
+    exist[0] = False
+    return exist
+
+
+@dataclasses.dataclass
+class QuantProblem:
+    """Flattened QP term arrays (host numpy, species-id indexed)."""
+
+    n: int                      # n_species + 1 (slot 0 unused)
+    exist0: np.ndarray          # bool [n]
+    # unique terms: uf*(uw*x[ug] - ur)^2
+    ug: np.ndarray
+    uw: np.ndarray
+    ur: np.ndarray
+    uf: np.ndarray
+    # doubly terms: df*(dw1*x[dg1] + dw2*x[dg2] - dr)^2, owned by `downer`
+    downer: np.ndarray
+    dg1: np.ndarray
+    dg2: np.ndarray
+    dw1: np.ndarray
+    dw2: np.ndarray
+    dr: np.ndarray
+    df: np.ndarray
+    # bounds and coupled constraints
+    lb: np.ndarray              # float [n]
+    ub: np.ndarray              # float [n]
+    c2_species: np.ndarray      # int [C2] species with a doubly constraint
+    c2_rhs: np.ndarray          # float [C2] cnts_d / (1+eps)
+    total_g: np.ndarray         # float [n] glength/rl
+    total_rhs: float            # (1+eps) * num_reads
+    max_cov: float
+
+
+def build_problem(
+    index_u: FlatIndex,
+    index_d: Optional[FlatIndex],
+    rcount_u: np.ndarray,
+    rcount_d: np.ndarray,
+    cnts_u: np.ndarray,
+    cnts_d: np.ndarray,
+    nus: np.ndarray,
+    nds: np.ndarray,
+    glength: np.ndarray,
+    rl: int,
+    num_reads: int,
+    erate: float,
+    fine: FineParams,
+) -> QuantProblem:
+    n = cnts_u.shape[0]
+    exist0 = prefilter(cnts_u, cnts_d, nus, nds, fine)
+    eps = fine.ilp_epsilon
+
+    # map_sp sizes: unique entries under rid1; doubly under both rids
+    size_u = np.zeros(n, np.int64)
+    if index_u.num_entries:
+        np.add.at(size_u, np.clip(index_u.rid1.astype(np.int64), 0, n - 1), 1)
+    size_d = np.zeros(n, np.int64)
+    if index_d is not None and index_d.num_entries:
+        np.add.at(size_d, np.clip(index_d.rid1.astype(np.int64), 0, n - 1), 1)
+        np.add.at(size_d, np.clip(index_d.rid2.astype(np.int64), 0, n - 1), 1)
+
+    def wcov(uc, depth):
+        return uc * (rl - depth) / rl * np.power(1.0 - erate, depth)
+
+    # ---- unique terms (entries of existing species) ----
+    if index_u.num_entries:
+        g_all = index_u.rid1.astype(np.int64)
+        w_all = wcov(index_u.ucount1.astype(np.float64),
+                     index_u.length.astype(np.float64))
+        keep = exist0[np.clip(g_all, 0, n - 1)]
+        ug = g_all[keep]
+        uw = w_all[keep]
+        ur = rcount_u[keep].astype(np.float64)
+        # size_u[ug] >= 1 for every realized term (the owner genome owns
+        # this very entry), so the max() guard never changes a value; the
+        # reference's float division (1000.0/size, src/query.cpp:1155)
+        # yields inf only for empty substring lists, which contribute no
+        # terms in either implementation
+        uf = 1000.0 / np.maximum(size_u[ug], 1)
+    else:
+        ug = np.zeros(0, np.int64)
+        uw = ur = uf = np.zeros(0, np.float64)
+        w_all = np.zeros(0, np.float64)
+        g_all = np.zeros(0, np.int64)
+
+    # ---- doubly terms: one per (existing owner, entry) ----
+    downer = dg1 = dg2 = np.zeros(0, np.int64)
+    dw1 = dw2 = dr = df = np.zeros(0, np.float64)
+    if index_d is not None and index_d.num_entries:
+        r1 = index_d.rid1.astype(np.int64)
+        r2 = index_d.rid2.astype(np.int64)
+        w1 = wcov(index_d.ucount1.astype(np.float64), index_d.length.astype(np.float64))
+        w2 = wcov(index_d.ucount2.astype(np.float64), index_d.length.astype(np.float64))
+        rr = rcount_d.astype(np.float64)
+        blocks = []
+        for owner_rid in (r1, r2):
+            keep = exist0[np.clip(owner_rid, 0, n - 1)]
+            blocks.append(
+                (owner_rid[keep], r1[keep], r2[keep], w1[keep], w2[keep],
+                 rr[keep], 1000.0 / np.maximum(size_d[owner_rid[keep]], 1))
+            )
+        downer = np.concatenate([b[0] for b in blocks])
+        dg1 = np.concatenate([b[1] for b in blocks])
+        dg2 = np.concatenate([b[2] for b in blocks])
+        dw1 = np.concatenate([b[3] for b in blocks])
+        dw2 = np.concatenate([b[4] for b in blocks])
+        dr = np.concatenate([b[5] for b in blocks])
+        df = np.concatenate([b[6] for b in blocks])
+
+    # ---- bounds ----
+    ub = np.where(exist0, fine.max_cov, 0.0)
+    # unique coverage constraint collapses to a per-species lower bound
+    sumw_u = np.zeros(n, np.float64)
+    if index_u.num_entries:
+        keep = exist0[np.clip(g_all, 0, n - 1)]
+        np.add.at(sumw_u, g_all[keep], w_all[keep])
+    constrained = exist0 & (nus >= fine.easy_to_identify_thres)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        lb_c = np.where(
+            constrained & (sumw_u > 0),
+            cnts_u / ((1.0 + eps) * np.maximum(sumw_u, 1e-300)),
+            0.0,
+        )
+    lb = np.minimum(lb_c, ub)
+
+    c2_sp = np.nonzero(constrained)[0]
+    c2_rhs = cnts_d[c2_sp].astype(np.float64) / (1.0 + eps)
+
+    return QuantProblem(
+        n=n, exist0=exist0,
+        ug=ug, uw=uw, ur=ur, uf=uf,
+        downer=downer, dg1=dg1, dg2=dg2, dw1=dw1, dw2=dw2, dr=dr, df=df,
+        lb=lb, ub=ub,
+        c2_species=c2_sp, c2_rhs=c2_rhs,
+        total_g=np.asarray(glength, np.float64) / max(rl, 1),
+        total_rhs=(1.0 + eps) * num_reads,
+        max_cov=fine.max_cov,
+    )
+
+
+def _make_host_bound(prob: QuantProblem):
+    """Certified node lower bound for the B&B (host numpy).
+
+    For any multipliers lam >= 0 (doubly-coverage rows, a >= constraint)
+    and mu >= 0 (the TOTAL <= row), the Lagrangian
+        L(z) = f(z) + lam . (c2_rhs - E2(z)) + mu . (tg.z - total_rhs)
+    under-estimates f(z) at every node-feasible z, and by convexity
+        L(z) >= L(x) + gL(x) . (z - x)   for all z,
+    so  min_{z feasible} f(z) >= L(x) + min_{z in box} gL(x) . (z - x),
+    where the box min is closed-form per coordinate.  The bound is VALID
+    AT ANY x — an under-converged node solve only loosens it, it can
+    never prune the true optimum (the r4 advisor finding: the previous
+    prune compared against the FISTA objective value, which upper-bounds
+    the relaxed optimum when unconverged).  mu is maximized over a
+    log-grid (the bound is concave piecewise-linear in mu, every grid
+    point is individually valid)."""
+    n = prob.n
+    C2 = len(prob.c2_species)
+    sp_row = np.full(n, C2, np.int64)
+    sp_row[prob.c2_species] = np.arange(C2)
+    trow = sp_row[prob.downer] if len(prob.downer) else np.zeros(0, np.int64)
+    live = trow < C2
+
+    def bound(x, lam_c2, lbv, ubv):
+        x = np.asarray(x, np.float64)
+        pu = prob.uw * x[prob.ug] - prob.ur
+        pd = prob.dw1 * x[prob.dg1] + prob.dw2 * x[prob.dg2] - prob.dr
+        f = float(np.sum(prob.uf * pu * pu) + np.sum(prob.df * pd * pd))
+        g = np.zeros(n)
+        np.add.at(g, prob.ug, 2.0 * prob.uf * prob.uw * pu)
+        np.add.at(g, prob.dg1, 2.0 * prob.df * prob.dw1 * pd)
+        np.add.at(g, prob.dg2, 2.0 * prob.df * prob.dw2 * pd)
+        const = f
+        if C2 > 0 and live.any():
+            lam = np.maximum(np.asarray(lam_c2, np.float64), 0.0)
+            e2 = np.zeros(C2)
+            vals = (prob.dw1 * x[prob.dg1] + prob.dw2 * x[prob.dg2])[live]
+            np.add.at(e2, trow[live], vals)
+            const += float(np.dot(lam, prob.c2_rhs - e2))
+            tm = lam[trow[live]]
+            np.add.at(g, prob.dg1[live], -tm * prob.dw1[live])
+            np.add.at(g, prob.dg2[live], -tm * prob.dw2[live])
+        tgx = float(np.dot(prob.total_g, x))
+        mu0 = np.max(np.abs(g)) / (np.max(prob.total_g) + 1e-300)
+        best = -np.inf
+        for mu in [0.0] + [mu0 * 10.0 ** e for e in range(-6, 3)]:
+            gm = g + mu * prob.total_g
+            boxmin = np.sum(np.minimum(gm * (lbv - x), gm * (ubv - x)))
+            best = max(best, const + mu * (tgx - prob.total_rhs) + boxmin)
+        return best
+
+    return bound
+
 
 
 def solve_quant(prob: QuantProblem, iters: int = 2000, outer: int = 6,

@@ -14,27 +14,45 @@ sc mode reads the same pair table as the JAX session
 npz session or from the artifact's ``prec`` rows with ``gid >= eu``.  It is
 built once per session on the host and kept on the device as one sorted
 int64 key ``lo << 32 | hi`` per pair.
+
+``QueryCounts`` is a copy of ``cammiq_tpu/query/pipeline.py:QueryCounts``.
+The session takes this package's ``FlatIndex`` and ``MergedArtifact`` and,
+duck-typed by their numpy attributes with no import, the JAX package's.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from cammiq_tpu.config import QueryConfig
-from cammiq_tpu.index.table import FlatIndex
-from cammiq_tpu.io.fastq import ReadSet
-from cammiq_tpu.query.pipeline import QueryCounts
-from cammiq_tpu.query.sortjoin import build_merged_index
-from cammiq_tpu.utils.timing import Timings, stage_timer
-
+from ..config import QueryConfig
 from ..device import resolve_device
+from ..index.table import FlatIndex
+from ..io.fastq import ReadSet
+from ..utils.timing import Timings, stage_timer
+from .merged import build_merged_index
 from .sortjoin import TorchMergedIndex, classify_batch
 
 MAXM_SEED = 16
 MAXM_LIMIT = 4096
+
+
+@dataclasses.dataclass
+class QueryCounts:
+    """Accumulated classification results for one query file."""
+
+    cnts_u: np.ndarray      # int64 [G] read_cnts_u by species id
+    cnts_d: np.ndarray      # int64 [G]
+    rcount_u: np.ndarray    # int64 [Eu] per unique-index entry
+    rcount_d: np.ndarray    # int64 [Ed]
+    nundet: int
+    nconf: int
+    pair_counts: Dict[Tuple[int, int], int]
+    num_reads: int
+    mean_read_len: int      # integer mean, reference: tlengths/reads.size()
 
 
 class QuerySession:

@@ -3,9 +3,9 @@
 Port of the production path of ``cammiq_tpu/query/sortjoin.py``
 (``collect_matches_sortjoin`` with ``join='bloom'``, 822-1310, and
 ``make_sortjoin_classifier``, 1313-1385).  The merged, RC-augmented,
-chain-colored index is built on the host by the JAX package's numpy
-build functions; this module carries it to the device and probes the forward
-strand only (see that module's docstring for why that is exact).
+chain-colored index is built on the host (``query/merged.py``); this
+module carries it to the device and probes the forward strand only (see
+``cammiq_tpu/query/sortjoin.py``'s docstring for why that is exact).
 
 Per batch:
   1. kernel 2 (``probe_bloom``): prefix hash + bloom test for every
@@ -29,7 +29,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from cammiq_tpu.query.sortjoin import (
+from ..kernels.cuckoo_verify import cuckoo_verify
+from ..kernels.first_of_run import first_of_run_scan
+from ..kernels.probe_bloom import num_offsets, probe_bloom
+from .classify import BIG, MatchSlots, case_analysis
+from .merged import (
     BLOOM_DEVICE_LOG,
     MergedIndex,
     _build_bloom,
@@ -37,11 +41,6 @@ from cammiq_tpu.query.sortjoin import (
     _fold_bloom,
     _fused_records,
 )
-
-from ..kernels.cuckoo_verify import cuckoo_verify
-from ..kernels.first_of_run import first_of_run_scan
-from ..kernels.probe_bloom import num_offsets, probe_bloom
-from .classify import BIG, MatchSlots, case_analysis
 
 
 def _as_i32(a: np.ndarray, device) -> torch.Tensor:
@@ -58,7 +57,12 @@ class TorchMergedIndex:
     """The four device arrays the probe path reads, plus its statics.
 
     ``pref_lo``/``pref_hi``/``brec``/``dir_start`` stay on the host: only
-    the JAX package's dir and sort joins read them."""
+    the JAX package's dir and sort joins read them.
+
+    ``from_merged`` and ``from_artifact`` read their source by its numpy
+    attributes only, so they take this package's ``MergedIndex`` and
+    ``MergedArtifact`` and, duck-typed with no import, the JAX package's
+    (the parity tests feed one index to both packages)."""
 
     h: int
     kw: int
@@ -78,7 +82,7 @@ class TorchMergedIndex:
     def from_merged(cls, m: MergedIndex, device) -> "TorchMergedIndex":
         erec, _, prec = _fused_records(
             m.key_words, m.length, m.color, m.bucket_start, m.bucket_count,
-            m.gid, m.rid1, m.rid2, np)
+            m.gid, m.rid1, m.rid2)
         bloom, blog = _build_bloom(np.asarray(m.pref_lo))
         ck, cklog = _build_cuckoo(m.pref_lo, m.bucket_start, m.bucket_count)
         return cls._make(m, m.pref_lo.shape[0], bloom, blog, ck, cklog, erec,

@@ -5,20 +5,26 @@
 
 Needs one CUDA device (written for an H100), the CUDA toolkit (nvcc) and a
 C++ compiler with OpenMP.  It builds everything from this checkout, imports
-nothing of JAX, and exits nonzero if any phase fails:
+nothing of JAX or of the JAX package, and exits nonzero if any phase fails:
 
 1. header: the card's name and power limit, torch/CUDA/nvcc versions; the
-   five CUDA kernels are compiled (build seconds printed);
-2. set-up: the config-#3-shape index (bench.py's generator: 1000 genomes x
-   300 kb, k=26 L=100 Lmax=50 h=26), built on the host once into the
-   git-ignored bench_cache/ (cold build seconds printed);
-3. kernels on the card: each kernel against its plain PyTorch version on
-   the same CUDA tensors at the main path's shapes (one batch of 8192 reads
-   x 100 bases; the scan also at n = 2^20), exact equality required,
-   median CUDA-event times of both;
+   five CUDA kernels and the native host library are compiled (build
+   seconds printed);
+2. set-up: the config-#3-shape index (the bench generator,
+   tools/benchdata.py: 1000 genomes x 300 kb, k=26 L=100 Lmax=50 h=26),
+   built by the port's build_index on cuda, saved, and made into the merged
+   artifact by the port's prepare_merged, in the git-ignored bench_cache/.
+   This is the build path: the launch counters are zeroed before the build
+   and read after, and its stage seconds and peak device memory are
+   printed;
+3. kernels on the card: each query kernel against its plain PyTorch version
+   on the same CUDA tensors at the main path's shapes (one batch of 8192
+   reads x 100 bases; the scan also at n = 2^20), exact equality required,
+   median CUDA-event times of both beside the kernel's bound;
 4. toy end to end through the CLI (5 x 2000 bp genomes, 4000 simulated
-   reads): quant abundances within 0.01 of the truth for all 5 genomes, a
-   Type-I file identical to the one the CPU path writes;
+   reads, index built on cuda): quant abundances within 0.01 of the truth
+   for all 5 genomes, a Type-I file identical to the one the CPU path
+   writes;
 5. main path at config-#3 scale: QuerySession.from_artifact on cuda over 16
    batches of 8192 reads, then build_problem + solve_quant; the kernels'
    launch counters are zeroed just before and read just after, and every
@@ -27,29 +33,35 @@ nothing of JAX, and exits nonzero if any phase fails:
    session start and peak device memory are printed;
 6. Type-II at config-#3 scale: the same reads in sc mode (launch counters
    zeroed before, read after); cnts_u/cnts_d/nundet/nconf must equal the
-   quant pass, the pair counts go to cammiq_tpu.models.ident.solve_ident,
-   steady-state sc and quant passes are timed in turns, and one batch's
-   outputs, pair outputs included, must be identical through the kernels
-   (cuda) and the plain versions (cpu);
+   quant pass, the pair counts go to solve_ident, steady-state sc and quant
+   passes are timed in turns, and one batch's outputs, pair outputs
+   included, must be identical through the kernels (cuda) and the plain
+   versions (cpu);
 7. profile: one more quant pass under torch.profiler, device time by
    kernel and the device's busy share of the pass's wall time (the table
    also goes to chiprun_out/chip_smoke_profile.txt);
 8. toy Type-II through the CLI: 5 genomes x 2000 bp with a 300 bp segment
-   planted in each pair of neighbours, indexed by `--build --engine jax
-   --device cuda` (the device build; its files must equal the host
-   build's), then a Type-II file from `--device cuda` identical to the one
-   from `--device cpu`, with nonzero pair counts;
-9. device build at config-#3 scale: the port's build_index on cuda over
-   the bench generator's corpus (launch counters zeroed before, read
-   after); every array of both FlatIndex tables, and the meta files, must
-   equal the host build of phase 2; stage seconds beside the host build's
-   and peak device memory are printed;
-10. build kernels against their plain versions on the build's own tensors
-   (recomputed after phase 9): first_of_run at the build's n in full;
-   lcp_pairs and occ_count (unique and doubly) timed at full n, and, with
-   their plain versions, on a contiguous slice of 2^24 ranks around the
-   longest LCP (the plain versions loop in Python over live sets, too slow
-   for 6e8 ranks within the time limit); exact equality required.
+   planted in each pair of neighbours, indexed by `--build --device cuda`
+   and by `--build --device cpu` (files must be equal), then a Type-II file
+   from `--device cuda` identical to the one from `--device cpu`, with
+   nonzero pair counts;
+9. the device build on cuda against the same build on the CPU device (the
+   plain versions of every kernel), array for array, on the bench generator
+   at BUILD_CHECK_GENOMES genomes (chosen so the CPU build takes about two
+   minutes); stage seconds of both are printed;
+10. build kernels against their plain versions on the config-#3 build's own
+   tensors (recomputed from the corpus): first_of_run at the build's n in
+   full, in index and value mode, forward and reverse; lcp_pairs and
+   occ_count (unique and doubly) timed at full n (lcp_pairs also with
+   clamp 32, its thread phase alone), and, with their plain
+   versions, on a contiguous slice of 2^24 ranks around the longest LCP
+   (the plain versions loop in Python over live sets, too slow for 6e8
+   ranks within the time limit); exact equality required.
+
+Every kernel time is printed beside its bound: the least time the card
+could take for the call, the larger of its bytes (each input read once,
+each output written once, counting what this call's data needs) over
+HBM_BYTES_PER_S and its operations over SCALAR_OPS_PER_S.
 
 Before the last line it prints the nvidia-smi line and one JSON object
 {"kernels": [...]}; the last line is
@@ -78,9 +90,14 @@ BATCH = 8192
 N_BATCHES = 16
 SCAN_N = 1 << 20
 TOY_TOL = 0.01
-
+BUILD_CHECK_GENOMES = 64
 SLICE = 1 << 24
 DEV = "cuda"
+# H100 SXM datasheet peaks: HBM3 bandwidth, and the
+# float32 rate outside the tensor cores, taken as the peak of the scalar
+# integer work these kernels do (the larger rate gives the smaller bound)
+HBM_BYTES_PER_S = 3.35e12
+SCALAR_OPS_PER_S = 67e12
 # name -> (source, what it replaces, the path whose launches it reports)
 KERNEL_INFO = {
     "first_of_run": ("cammiq_tpu_torch/csrc/first_of_run.cu",
@@ -100,6 +117,11 @@ PATH_KERNELS = {
     "typeII": ("first_of_run", "probe_bloom", "cuckoo_verify"),
     "build": ("first_of_run", "lcp_pairs", "occ_count"),
 }
+INDEX_FIELDS = ("key_words", "length", "rid1", "rid2", "ucount1", "ucount2",
+                "table_lo", "table_hi", "table_start", "table_count")
+INDEX_STATICS = ("h", "kw", "max_probes", "max_bucket", "is_doubly")
+META_FILES = ("genome_lengths.out", "unique_lmer_count_u.out",
+              "unique_lmer_count_d.out")
 
 
 def log(msg: str) -> None:
@@ -114,26 +136,6 @@ def nvidia_smi_line() -> str:
     except (OSError, subprocess.TimeoutExpired) as e:
         return f"nvidia-smi unavailable: {e}"
     return r.stdout.strip().splitlines()[0] if r.returncode == 0 else "n/a"
-
-
-def ensure_native_library() -> None:
-    """Build native/libcammiq_native.so (the C++ engine of the host index
-    build) if absent.  The default compiler is tried first, then the
-    system g++ (the first may lack OpenMP)."""
-    native_dir = os.path.join(REPO, "native")
-    so = os.path.join(native_dir, "libcammiq_native.so")
-    tried = []
-    if not os.path.exists(so):
-        for cxx in dict.fromkeys([os.environ.get("CXX", "g++"), "/usr/bin/g++"]):
-            r = subprocess.run(["make", "-C", native_dir, f"CXX={cxx}"],
-                               capture_output=True, text=True, timeout=600)
-            tried.append(f"CXX={cxx}: rc={r.returncode} {r.stderr[-500:]}")
-            if r.returncode == 0 and os.path.exists(so):
-                break
-    from cammiq_tpu import native
-
-    if not native.available():
-        raise RuntimeError("native index library unavailable: " + " | ".join(tried))
 
 
 def cuda_median_ms(fn, reps: int = 11, inner: int = 20, warmup: int = 3) -> float:
@@ -156,6 +158,92 @@ def cuda_median_ms(fn, reps: int = 11, inner: int = 20, warmup: int = 3) -> floa
         e.synchronize()
         times.append(s.elapsed_time(e) / inner)
     return statistics.median(times)
+
+
+# ---- bounds: the least time the card could take for one call
+
+def bound(nbytes: float, ops: float = 0.0) -> dict:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": int(nbytes), "ops": int(ops)}
+
+
+def bound_first_of_run(is_start, *values) -> dict:
+    """1 flag byte per element; each value array read and its output
+    written, or in index mode the int32 index written."""
+    n, nv = is_start.numel(), len(values)
+    return bound(n + (8 * nv if nv else 4) * n)
+
+
+def bound_probe_bloom(codes, bloom, h, blog, khlo) -> dict:
+    """The codes, the bloom words this batch touches, both outputs."""
+    import torch
+
+    from cammiq_tpu_torch import u32
+
+    words = torch.unique(u32.widen(khlo) >> (32 - blog)).numel()
+    return bound(codes.numel() + 4 * words + 5 * khlo.numel())
+
+
+def bound_cuckoo_verify(args, found, h) -> dict:
+    """The rows and their hashes, the codes and lengths of the reads they
+    fall in, the cuckoo rows they hash to, the entries they match (a lower
+    bound: the bucket scan reads every entry of the span), the output."""
+    import torch
+
+    from cammiq_tpu_torch import u32
+    from cammiq_tpu_torch.kernels.cuckoo_verify import cuckoo_pos
+    from cammiq_tpu_torch.kernels.probe_bloom import num_offsets
+
+    rows, khlo, codes, lengths, cuckoo, clog, erec, _ = args
+    K = rows.numel()
+    Lp = codes.shape[1]
+    reads = torch.unique(rows // num_offsets(Lp, h)).numel()
+    key = u32.widen(khlo[rows])
+    crows = torch.unique(torch.cat([cuckoo_pos(key, 0, clog),
+                                    cuckoo_pos(key, 1, clog)])).numel()
+    ents = torch.unique(found[found >= 0]).numel()
+    return bound(12 * K + reads * (Lp + 4) + crows * cuckoo.shape[1] * 4
+                 + ents * erec.shape[1] * 4 + 4 * found.numel())
+
+
+def bound_lcp_pairs(text, sa, lcp) -> dict:
+    """Bytes: sa and out once, and the text bytes the pairs need (the union
+    over ranks of each suffix's longer comparison plus the byte that
+    differs); operations: one 32-bit compare per 4 bytes compared."""
+    import torch
+
+    n, m = text.numel(), sa.numel()
+    if m == n:          # a whole suffix array: every byte starts a suffix
+        text_bytes = n
+    else:
+        a = sa.long()
+        need = torch.minimum(torch.maximum(lcp[:m], lcp[1:m + 1]).long() + 1, n - a)
+        a, order = torch.sort(a)
+        e = a + need[order]
+        del need, order
+        reach = torch.cummax(e, 0).values
+        prev = torch.cat([a[:1], reach[:-1]])
+        text_bytes = int((e - torch.maximum(a, prev)).clamp_(min=0).sum())
+    ops = int(((lcp[1:m].long() + 4) // 4).sum())
+    return bound(text_bytes + 8 * m + 4, ops)
+
+
+def bound_occ_unique(lcp, lcp0, gsa) -> dict:
+    n = gsa.numel()
+    return bound(4 * (n + 1) + 12 * n)
+
+
+def bound_occ_doubly(lcp, lcp0, gsa, g2, ulmax, end_excl) -> dict:
+    """lcp0 of every rank and both outputs; lcp, gsa and g2 of the ranks
+    that walk (lcp0 <= ulmax past end_excl)."""
+    import torch
+
+    n = gsa.numel()
+    walk = int(((lcp0 <= ulmax) & (torch.arange(n, device=gsa.device) > end_excl)).sum())
+    return bound(12 * n + 12 * walk)
 
 
 def kernel_counters() -> dict:
@@ -186,6 +274,26 @@ def read_counts(path: str, results: dict) -> dict:
 
 def max_abs_err(a, b) -> int:
     return int((a.to("cpu").long() - b.to("cpu").long()).abs().max()) if a.numel() else 0
+
+
+def assert_same_index(got, want, what: str) -> None:
+    """Every array and static of two FlatIndex tables."""
+    import numpy as np
+
+    for f in INDEX_FIELDS:
+        if not np.array_equal(getattr(got, f), getattr(want, f)):
+            raise AssertionError(f"{what}: {f} differs")
+    for f in INDEX_STATICS:
+        if getattr(got, f) != getattr(want, f):
+            raise AssertionError(f"{what}: {f} differs")
+
+
+def stage_table(stages: dict, peaks: dict, other: dict | None = None) -> str:
+    return "\n".join(
+        f"  {k:<48} {v:9.3f} s" + (f"   cpu {other.get(k, float('nan')):9.3f} s"
+                                   if other is not None else "")
+        + (f"   peak {peaks[k] / 1e9:6.2f} GB" if k in peaks else "")
+        for k, v in stages.items())
 
 
 class Tee(io.StringIO):
@@ -219,10 +327,37 @@ class Smoke:
             self.failed.append(name)
             return None
 
-    # ---- 1. header + kernel build
+    def compare(self, name, kern, plain, args, bnd, reps=(11, 20, 3),
+                plain_reps=(11, 20, 3), **kw):
+        """Kernel against its plain version on the same CUDA tensors:
+        exact equality, median CUDA-event times, the bound beside them."""
+        import torch
+
+        got = kern(*args, **kw)
+        want = plain(*args, **kw)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = max(max_abs_err(g, w) for g, w in zip(got, want))
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        ms = cuda_median_ms(lambda: kern(*args, **kw), *reps)
+        plain_ms = cuda_median_ms(lambda: plain(*args, **kw), *plain_reps)
+        shape = [tuple(a.shape) for a in args if torch.is_tensor(a)]
+        log(f"{name}: shapes {shape} equal={same} max_abs_err={err} kernel "
+            f"{ms:.4f} ms plain {plain_ms:.4f} ms bound {bnd['bound_ms']:.4f} ms "
+            f"({bnd['bound_by']}: {bnd['bytes']} B, {bnd['ops']} ops) -> "
+            f"{100 * bnd['bound_ms'] / ms:.1f}% of bound")
+        self.kernels[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                              "shapes": shape, **bnd}
+        if not same:
+            raise AssertionError(f"{name}: kernel != plain version")
+        return got
+
+    # ---- 1. header + kernel and native builds
     def header(self):
         import torch
 
+        from cammiq_tpu_torch import native
         from cammiq_tpu_torch.kernels import build
 
         nvcc = subprocess.run([build._nvcc(), "--version"], capture_output=True,
@@ -235,38 +370,81 @@ class Smoke:
         log(f"kernel build: {self.results['kernel_build_s']:.1f} s "
             f"({build.library_path().name})")
         log(build.library_path().with_suffix(".log").read_text().strip())
-
-    # ---- 2. realistic index (host)
-    def realistic_index(self):
-        ensure_native_library()
-        import bench
-
         t = time.time()
-        # the host build prints "Time for <stage>: N ms." to stderr; keep
-        # the lines for the stage table beside the device build's
+        if not native.available():
+            raise RuntimeError(f"native host library unavailable: {native.build_error()}")
+        self.results["native_build_s"] = time.time() - t
+        log(f"native host library: {self.results['native_build_s']:.1f} s "
+            f"({native.library_path().name})")
+
+    # ---- 2. config-#3 index, built by the port on the card (set-up)
+    def realistic_index(self):
+        import torch
+
+        from cammiq_tpu_torch.config import BuildConfig
+        from cammiq_tpu_torch.index.artifact import prepare_merged
+        from cammiq_tpu_torch.index.builder import build_index, save_index
+        from cammiq_tpu_torch.io.fasta import corpus_from_sequences
+        from cammiq_tpu_torch.tools.benchdata import (BENCH_GENOMES, BENCH_GLEN,
+                                                      gen_genomes)
+
+        cdir = os.path.join(REPO, "bench_cache",
+                            f"torch_g{BENCH_GENOMES}_l{BENCH_GLEN // 1000}k")
+        shutil.rmtree(cdir, ignore_errors=True)
+        t0 = time.time()
+        corpus = corpus_from_sequences(gen_genomes(BENCH_GENOMES, BENCH_GLEN))
+        gen_s = time.time() - t0
+        cfg = BuildConfig(k=26, L=100, Lmax=50, h=26, mode="both")
+        torch.cuda.empty_cache()
+        zero_counts()
+        # the build prints each stage's time and peak device memory
         err = Tee(sys.stderr)
+        t = time.time()
         with contextlib.redirect_stderr(err):
-            mdir = bench.ensure_production_index()
-        self.results["index_build_s"] = time.time() - t
-        self.results["host_build_stages_s"] = {
-            m.group(1): int(m.group(2)) / 1e3
-            for m in re.finditer(r"Time for (.+?): (\d+) ms\.", err.getvalue())}
-        self.results["genomes"] = bench.BENCH_GENOMES
-        self.results["genome_len"] = bench.BENCH_GLEN
-        log(f"index ({bench.BENCH_GENOMES} x {bench.BENCH_GLEN} bp): "
-            f"{self.results['index_build_s']:.1f} s -> {mdir}")
+            art = build_index(corpus, cfg, device=DEV, verbose=True)
+        build_s = time.time() - t
+        launches = read_counts("build", self.results)
+        peaks = {m.group(1): int(m.group(2)) * 2**20 for m in re.finditer(
+            r"Peak device memory for (.+?): (\d+) MiB\.", err.getvalue())}
+        t = time.time()
+        save_index(art, cdir)
+        save_s = time.time() - t
+        ne = (art.unique_index.num_entries, art.doubly_index.num_entries)
+        del art
+        t = time.time()
+        mdir = os.path.join(cdir, "merged")
+        prepare_merged(os.path.join(cdir, "index_u.npz"),
+                       os.path.join(cdir, "index_d.npz"), mdir, verbose=True)
+        merged_s = time.time() - t
+        stages = dict(re.findall(r"Time for (.+?): (\d+) ms\.", err.getvalue()))
+        stages = {k: int(v) / 1e3 for k, v in stages.items()}
+        self.results.update(
+            genomes=BENCH_GENOMES, genome_len=BENCH_GLEN,
+            index_build_s=time.time() - t0,
+            device_build={"n": corpus.n, "corpus_gen_s": gen_s, "build_s": build_s,
+                          "stages_s": stages, "stage_peak_bytes": peaks,
+                          "peak_device_bytes": max(peaks.values(), default=0),
+                          "save_s": save_s, "prepare_merged_s": merged_s,
+                          "entries": ne, "launches": launches})
+        log(f"config-#3 device build of n={corpus.n} in {build_s:.1f} s (corpus "
+            f"made in {gen_s:.1f} s), peak device memory "
+            f"{max(peaks.values(), default=0) / 1e9:.2f} GB, entries {ne}, "
+            f"launches {launches}; stages (device | peak):\n"
+            + stage_table(stages, peaks)
+            + f"\n  save {save_s:.1f} s, prepare_merged {merged_s:.1f} s; set-up "
+            f"total {self.results['index_build_s']:.1f} s -> {mdir}")
         return mdir
 
     def reads(self):
         import numpy as np
 
-        import bench
-        from cammiq_tpu.io.fastq import ReadSet
+        from cammiq_tpu_torch.io.fastq import ReadSet
+        from cammiq_tpu_torch.tools.benchdata import (BENCH_GENOMES, BENCH_GLEN,
+                                                      gen_genomes, sample_read_batch)
 
-        genomes = bench.gen_bench_genomes()
+        genomes = gen_genomes(BENCH_GENOMES, BENCH_GLEN)
         rng = np.random.default_rng(1)
-        parts = [bench.sample_read_batch(rng, genomes, BATCH)
-                 for _ in range(N_BATCHES)]
+        parts = [sample_read_batch(rng, genomes, BATCH) for _ in range(N_BATCHES)]
         codes = np.concatenate([p[0] for p in parts])
         lengths = np.concatenate([p[1] for p in parts])
         return ReadSet(codes=codes, lengths=lengths,
@@ -275,16 +453,15 @@ class Smoke:
     def session(self, mdir):
         import torch
 
-        import bench
-        from cammiq_tpu.config import QueryConfig
-        from cammiq_tpu.index.artifact import load_merged_artifact
+        from cammiq_tpu_torch.config import QueryConfig
+        from cammiq_tpu_torch.index.artifact import load_merged_artifact
         from cammiq_tpu_torch.query.pipeline import QuerySession
 
         torch.cuda.reset_peak_memory_stats()
         t = time.time()
         art = load_merged_artifact(mdir)
         sess = QuerySession.from_artifact(
-            art, bench.BENCH_GENOMES + 1,
+            art, self.results["genomes"] + 1,
             QueryConfig(h=art.h, erate=0.01, batch_size=BATCH), device=DEV)
         torch.cuda.synchronize()
         self.results["session_start_s"] = time.time() - t
@@ -313,7 +490,7 @@ class Smoke:
         dev = sess.device
         codes = torch.from_numpy(reads.codes[:BATCH]).to(dev).contiguous()
         lengths = torch.from_numpy(reads.lengths[:BATCH]).to(dev)
-        # record each wrapper's arguments during one real batch
+        # record each wrapper's arguments and result during one real batch
         captured = {}
         originals = {}
         for name in ("probe_bloom", "cuckoo_verify", "first_of_run_scan"):
@@ -321,8 +498,9 @@ class Smoke:
             originals[name] = orig
 
             def rec(*a, _n=name, _f=orig):
-                captured[_n] = a
-                return _f(*a)
+                out = _f(*a)
+                captured[_n] = (a, out)
+                return out
 
             setattr(sj, name, rec)
         try:
@@ -335,42 +513,29 @@ class Smoke:
         scan_big = (torch.from_numpy(rng.random(SCAN_N) < 0.05).to(dev),
                     torch.from_numpy(rng.integers(0, 1 << 30, SCAN_N)
                                      .astype(np.int32)).to(dev))
-        cases = [
-            ("probe_bloom", kpb.probe_bloom, kpb.probe_bloom_plain,
-             captured["probe_bloom"]),
-            ("cuckoo_verify", kcv.cuckoo_verify, kcv.cuckoo_verify_plain,
-             captured["cuckoo_verify"]),
-            ("first_of_run", kfr.first_of_run_scan, kfr.first_of_run_scan_plain,
-             captured["first_of_run_scan"]),
-            ("first_of_run@2^20", kfr.first_of_run_scan,
-             kfr.first_of_run_scan_plain, scan_big),
-        ]
-        for name, kern, plain, args in cases:
-            got = kern(*args)
-            want = plain(*args)
-            torch.cuda.synchronize()
-            got = got if isinstance(got, tuple) else (got,)
-            want = want if isinstance(want, tuple) else (want,)
-            err = max(max_abs_err(g, w) for g, w in zip(got, want))
-            same = all(torch.equal(g, w) for g, w in zip(got, want))
-            ms = cuda_median_ms(lambda: kern(*args))
-            plain_ms = cuda_median_ms(lambda: plain(*args))
-            shape = [tuple(a.shape) for a in args if torch.is_tensor(a)]
-            log(f"{name}: shapes {shape} equal={same} max_abs_err={err} "
-                f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
-            self.kernels[name] = {"max_abs_err": err, "ms": ms,
-                                  "plain_ms": plain_ms, "shapes": shape}
-            if not same:
-                raise AssertionError(f"{name}: kernel != plain version")
+        pb_args, (_, khlo) = captured["probe_bloom"]
+        cv_args, found = captured["cuckoo_verify"]
+        fr_args, _ = captured["first_of_run_scan"]
+        h = sess.dm.h
+        self.compare("probe_bloom", kpb.probe_bloom, kpb.probe_bloom_plain,
+                     pb_args, bound_probe_bloom(*pb_args, khlo))
+        self.compare("cuckoo_verify", kcv.cuckoo_verify, kcv.cuckoo_verify_plain,
+                     cv_args, bound_cuckoo_verify(cv_args, found, h))
+        self.compare("first_of_run", kfr.first_of_run_scan,
+                     kfr.first_of_run_scan_plain, fr_args,
+                     bound_first_of_run(*fr_args))
+        self.compare("first_of_run@2^20", kfr.first_of_run_scan,
+                     kfr.first_of_run_scan_plain, scan_big,
+                     bound_first_of_run(*scan_big))
 
     # ---- 4. toy end to end through the CLI
     def toy_cli(self):
         import numpy as np
 
-        from cammiq_tpu.models.output import parse_quant_output
-        from cammiq_tpu.tools.simulate import simulate
         from cammiq_tpu_torch import cli
         from cammiq_tpu_torch.kernels import cuckoo_verify, first_of_run, probe_bloom
+        from cammiq_tpu_torch.models.output import parse_quant_output
+        from cammiq_tpu_torch.tools.simulate import simulate
 
         os.makedirs(OUT_DIR, exist_ok=True)
         root = tempfile.mkdtemp(prefix="smoke_toy_", dir=OUT_DIR)
@@ -388,8 +553,9 @@ class Smoke:
                         f.writelines(s[i:i + 80] + "\n" for i in range(0, 2000, 80))
                     m.write(f"genome{g + 1}.fasta\t{g + 1}\t{1000 + g}\tGenome_{g + 1}\n")
             iu, idd = os.path.join(root, "idx_u.npz"), os.path.join(root, "idx_d.npz")
-            cli.main(["--build", "--both", "-f", mapf, "-D", db, "-k", "20",
-                      "-L", "100", "-Lmax", "40", "-h", "20", "-i", iu, idd])
+            cli.main(["--device", DEV, "--build", "--both", "-f", mapf, "-D", db,
+                      "-k", "20", "-L", "100", "-Lmax", "40", "-h", "20", "-i",
+                      iu, idd])
             fq, truth = os.path.join(root, "reads.fq"), os.path.join(root, "truth.out")
             simulate(mapf, db, fq, truth, num_reads=4000, L=100, erate=0.01,
                      dist="lognormal", seed=0)
@@ -434,14 +600,12 @@ class Smoke:
         import numpy as np
         import torch
 
-        import bench
-        from cammiq_tpu.config import FineParams
-        from cammiq_tpu.io.mapfile import Genome, GenomeTable, load_genome_lengths
-        from cammiq_tpu.models.quant import build_problem
-        from cammiq_tpu_torch.models.quant import solve_quant
+        from cammiq_tpu_torch.config import FineParams
+        from cammiq_tpu_torch.io.mapfile import Genome, GenomeTable, load_genome_lengths
+        from cammiq_tpu_torch.models.quant import build_problem, solve_quant
         from cammiq_tpu_torch.query.sortjoin import TorchMergedIndex, classify_batch
 
-        G = bench.BENCH_GENOMES + 1
+        G = self.results["genomes"] + 1
         table = GenomeTable([None] + [Genome(taxid=i, name=f"g{i}")
                                       for i in range(1, G)])
         load_genome_lengths(table, art.path)
@@ -545,12 +709,11 @@ class Smoke:
         import numpy as np
         import torch
 
-        import bench
-        from cammiq_tpu.config import IdentFineParams
-        from cammiq_tpu.models.ident import solve_ident
+        from cammiq_tpu_torch.config import IdentFineParams
+        from cammiq_tpu_torch.models.ident import solve_ident
         from cammiq_tpu_torch.query.sortjoin import TorchMergedIndex, classify_batch
 
-        G = bench.BENCH_GENOMES + 1
+        G = self.results["genomes"] + 1
         want = self.quant_counts
         zero_counts()
         torch.cuda.synchronize()
@@ -610,17 +773,17 @@ class Smoke:
         if not same:
             raise AssertionError("sc-mode batch outputs differ kernels vs plain")
 
-    # ---- 8. toy Type-II and device build through the CLI
+    # ---- 8. toy Type-II and the build through the CLI, cuda against cpu
     def toy_type2(self):
         import numpy as np
         import torch
 
-        from cammiq_tpu.config import QueryConfig
-        from cammiq_tpu.index.table import load_flat_index, load_flat_index_pair
-        from cammiq_tpu.io.fastq import read_fastq
-        from cammiq_tpu.tools.simulate import simulate
         from cammiq_tpu_torch import cli
+        from cammiq_tpu_torch.config import QueryConfig
+        from cammiq_tpu_torch.index.table import load_flat_index, load_flat_index_pair
+        from cammiq_tpu_torch.io.fastq import read_fastq
         from cammiq_tpu_torch.query.pipeline import QuerySession
+        from cammiq_tpu_torch.tools.simulate import simulate
 
         os.makedirs(OUT_DIR, exist_ok=True)
         root = tempfile.mkdtemp(prefix="smoke_pairs_", dir=OUT_DIR)
@@ -646,30 +809,24 @@ class Smoke:
             flags = ["--both", "-f", mapf, "-D", db, "-k", "20", "-L", "100",
                      "-Lmax", "40", "-h", "20"]
             idx = {}
-            for name, extra in (("host", []), ("device", ["--device", DEV,
-                                                           "--engine", "jax"])):
-                d = os.path.join(root, name)
+            for dev in ("cpu", DEV):
+                d = os.path.join(root, dev)
                 zero_counts()
-                cli.main([*extra, "--build", *flags, "-i",
+                cli.main(["--device", dev, "--build", *flags, "-i",
                           os.path.join(d, "index_u.npz"), os.path.join(d, "index_d.npz")])
-                if name == "device":
+                if dev == DEV:
                     log(f"toy device build launches: "
-                        f"{read_counts('build', self.results)}")
-                idx[name] = d
+                        f"{read_counts('build', {})}")
+                idx[dev] = d
             for f in ("index_u.npz", "index_d.npz"):
-                a, b = (load_flat_index(os.path.join(idx[k], f)) for k in ("host", "device"))
-                for field in ("key_words", "length", "rid1", "rid2", "ucount1",
-                              "ucount2", "table_lo", "table_hi", "table_start",
-                              "table_count"):
-                    if not np.array_equal(getattr(a, field), getattr(b, field)):
-                        raise AssertionError(f"toy device build differs: {f} {field}")
-            for f in ("genome_lengths.out", "unique_lmer_count_u.out",
-                      "unique_lmer_count_d.out"):
-                with open(os.path.join(idx["host"], f)) as a, \
-                        open(os.path.join(idx["device"], f)) as b:
+                assert_same_index(*(load_flat_index(os.path.join(idx[k], f))
+                                    for k in (DEV, "cpu")), f"toy build {f}")
+            for f in META_FILES:
+                with open(os.path.join(idx["cpu"], f)) as a, \
+                        open(os.path.join(idx[DEV], f)) as b:
                     if a.read() != b.read():
                         raise AssertionError(f"toy device build differs: {f}")
-            iu, idd = (os.path.join(idx["device"], f) for f in ("index_u.npz", "index_d.npz"))
+            iu, idd = (os.path.join(idx[DEV], f) for f in ("index_u.npz", "index_d.npz"))
             fq = os.path.join(root, "reads.fq")
             simulate(mapf, db, fq, os.path.join(root, "truth.out"), num_reads=3000,
                      L=100, erate=0.01, dist="uniform", seed=3)
@@ -695,136 +852,119 @@ class Smoke:
         finally:
             shutil.rmtree(root, ignore_errors=True)
 
-    # ---- 9. device build at config-#3 scale
-    def device_build(self, mdir):
+    # ---- 9. the device build against the CPU build at a reduced size
+    def build_vs_cpu(self):
         import numpy as np
-        import torch
 
-        import bench
-        from cammiq_tpu.config import BuildConfig
-        from cammiq_tpu.index.builder import write_meta_outputs
-        from cammiq_tpu.index.table import load_flat_index
-        from cammiq_tpu.io.fasta import corpus_from_sequences
-        from cammiq_tpu_torch.index.builder import build_index
+        from cammiq_tpu_torch.config import BuildConfig
+        from cammiq_tpu_torch.index.builder import build_index, write_meta_outputs
+        from cammiq_tpu_torch.io.fasta import corpus_from_sequences
+        from cammiq_tpu_torch.tools.benchdata import BENCH_GLEN, gen_genomes
 
-        t = time.time()
-        genomes = bench.gen_bench_genomes()
-        corpus = corpus_from_sequences(genomes)
-        del genomes
-        gen_s = time.time() - t
+        corpus = corpus_from_sequences(gen_genomes(BUILD_CHECK_GENOMES, BENCH_GLEN))
         cfg = BuildConfig(k=26, L=100, Lmax=50, h=26, mode="both")
-        torch.cuda.empty_cache()
-        base_mem = torch.cuda.memory_allocated()
-        zero_counts()
-        # the build prints each stage's time and peak device memory
-        err = Tee(sys.stderr)
-        t = time.time()
-        with contextlib.redirect_stderr(err):
-            art = build_index(corpus, cfg, device=DEV, verbose=True)
-        build_s = time.time() - t
-        launches = read_counts("build", self.results)
-        peaks = {m.group(1): int(m.group(2)) * 2**20 for m in re.finditer(
-            r"Peak device memory for (.+?): (\d+) MiB\.", err.getvalue())}
-        peak = max(peaks.values(), default=0)
-        stages = art.timings.as_dict()
-        host = self.results.get("host_build_stages_s", {})
-        self.results["device_build"] = {
-            "n": corpus.n, "corpus_gen_s": gen_s, "build_s": build_s,
-            "stages_s": stages, "stage_peak_bytes": peaks,
-            "peak_device_bytes": peak, "held_before_bytes": base_mem,
-            "launches": launches}
-        lines = [f"  {k:<48} {v:9.3f} s   host {host.get(k, float('nan')):9.3f} s"
-                 f"   peak {peaks.get(k, 0) / 1e9:6.2f} GB"
-                 for k, v in stages.items()]
-        log(f"device build of n={corpus.n} in {build_s:.1f} s (corpus made in "
-            f"{gen_s:.1f} s), peak device memory {peak / 1e9:.2f} GB (the "
-            f"session held {base_mem / 1e9:.2f} GB of it), launches {launches}; "
-            f"stages (device | host build | device peak):\n"
-            + "\n".join(lines) + f"\n  host build total (phase 2, incl. corpus "
-            f"and artifact): {self.results.get('index_build_s', float('nan')):.1f} s")
-        cdir = os.path.dirname(mdir)
-        for name, got in (("index_u.npz", art.unique_index),
-                          ("index_d.npz", art.doubly_index)):
-            want = load_flat_index(os.path.join(cdir, name))
-            for f in ("key_words", "length", "rid1", "rid2", "ucount1", "ucount2",
-                      "table_lo", "table_hi", "table_start", "table_count"):
-                if not np.array_equal(getattr(got, f), getattr(want, f)):
-                    raise AssertionError(f"device build differs from host: {name} {f}")
-            for f in ("h", "kw", "max_probes", "max_bucket", "is_doubly"):
-                if getattr(got, f) != getattr(want, f):
-                    raise AssertionError(f"device build differs from host: {name} {f}")
-            log(f"{name}: {got.num_entries} entries, identical to the host build")
+        arts, secs = {}, {}
+        for dev in (DEV, "cpu"):
+            t = time.time()
+            with contextlib.redirect_stderr(io.StringIO()):
+                arts[dev] = build_index(corpus, cfg, device=dev, verbose=True)
+            secs[dev] = time.time() - t
+        got, want = arts[DEV], arts["cpu"]
+        for name in ("unique_index", "doubly_index"):
+            assert_same_index(getattr(got, name), getattr(want, name),
+                              f"build cuda vs cpu {name}")
+        for f in ("ulm_count_u", "ulm_count_d", "genome_lengths"):
+            if not np.array_equal(getattr(got, f), getattr(want, f)):
+                raise AssertionError(f"build cuda vs cpu: {f} differs")
         tmp = tempfile.mkdtemp(prefix="smoke_meta_", dir=OUT_DIR)
         try:
-            write_meta_outputs(art, tmp)
-            for f in ("genome_lengths.out", "unique_lmer_count_u.out",
-                      "unique_lmer_count_d.out"):
-                with open(os.path.join(tmp, f)) as a, open(os.path.join(cdir, f)) as b:
+            for dev, art in arts.items():
+                write_meta_outputs(art, os.path.join(tmp, dev))
+            for f in META_FILES:
+                with open(os.path.join(tmp, DEV, f)) as a, \
+                        open(os.path.join(tmp, "cpu", f)) as b:
                     if a.read() != b.read():
-                        raise AssertionError(f"device build differs from host: {f}")
+                        raise AssertionError(f"build cuda vs cpu: {f} differs")
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
-        log("ulm counts and genome lengths identical to the host build")
-        return corpus
+        stages = {d: a.timings.as_dict() for d, a in arts.items()}
+        self.results["build_vs_cpu"] = {
+            "genomes": BUILD_CHECK_GENOMES, "n": corpus.n, "build_s": secs,
+            "stages_s": stages,
+            "entries": (got.unique_index.num_entries, got.doubly_index.num_entries)}
+        log(f"build of n={corpus.n} ({BUILD_CHECK_GENOMES} genomes): cuda "
+            f"{secs[DEV]:.1f} s, cpu {secs['cpu']:.1f} s; both tables "
+            f"({got.unique_index.num_entries}, {got.doubly_index.num_entries} "
+            f"entries), ulm counts and meta files identical; stages (cuda | cpu):\n"
+            + stage_table(stages[DEV], {}, stages["cpu"]))
 
     # ---- 10. build kernels vs plain versions on the build's tensors
-    def build_kernels(self, corpus):
+    def build_kernels(self):
         import numpy as np
         import torch
 
         from cammiq_tpu_torch.index import unique as uq
+        from cammiq_tpu_torch.io.fasta import corpus_from_sequences
         from cammiq_tpu_torch.kernels import first_of_run as kfr
         from cammiq_tpu_torch.kernels import lcp_pairs as klcp
         from cammiq_tpu_torch.kernels import occ_count as kocc
         from cammiq_tpu_torch.ops.sa import suffix_array
+        from cammiq_tpu_torch.tools.benchdata import (BENCH_GENOMES, BENCH_GLEN,
+                                                      gen_genomes)
 
+        corpus = corpus_from_sequences(gen_genomes(BENCH_GENOMES, BENCH_GLEN))
         dev = torch.device(DEV)
         text = torch.from_numpy(np.array(corpus.seq, np.uint8)).to(dev)
         sa = suffix_array(text)
         lcp = klcp.lcp_pairs(text, sa)
         gsa = uq.compute_gsa(sa, corpus.ref_pos, corpus.ref_id)
+        del corpus
+        n = gsa.shape[0]
+        torch.cuda.synchronize()
+        full = 5, 1, 1      # reps, inner, warmup: full-n kernels
+        once = 1, 1, 0      # the plain versions at full n: one timed call
+
+        # first_of_run at the build's n, every mode: run_info's starts/ends
+        starts = torch.ones(n, dtype=torch.bool, device=dev)
+        starts[1:] = gsa[1:] != gsa[:-1]
+        ends = torch.ones(n, dtype=torch.bool, device=dev)
+        ends[:-1] = starts[1:]
+        for flags, rev in ((starts, False), (ends, True)):
+            tag = "rt" if rev else "rb"
+            self.compare(f"first_of_run@build_n index {tag}", kfr.first_of_run_scan,
+                         kfr.first_of_run_scan_plain, (flags,),
+                         bound_first_of_run(flags), full, once, reverse=rev)
+            self.compare(f"first_of_run@build_n values {tag}", kfr.first_of_run_scan,
+                         kfr.first_of_run_scan_plain, (flags, gsa),
+                         bound_first_of_run(flags, gsa), full, once, reverse=rev)
+        del starts, ends
         lcp0 = uq.unique_lcp0(gsa, lcp, 25)
         dl, g2 = uq.doubly_lcp0(sa, gsa, lcp, 25, 100)
         g2 = g2[sa.long()]
-        n = gsa.shape[0]
-        torch.cuda.synchronize()
-
-        def compare(name, kern, plain, args, full_ms=None):
-            got = kern(*args)
-            want = plain(*args)
-            torch.cuda.synchronize()
-            got = got if isinstance(got, tuple) else (got,)
-            want = want if isinstance(want, tuple) else (want,)
-            err = max(max_abs_err(g, w) for g, w in zip(got, want))
-            same = all(torch.equal(g, w) for g, w in zip(got, want))
-            ms = cuda_median_ms(lambda: kern(*args), reps=5, inner=1, warmup=1)
-            plain_ms = cuda_median_ms(lambda: plain(*args), reps=3, inner=1, warmup=0)
-            shape = [tuple(a.shape) for a in args if torch.is_tensor(a)]
-            log(f"{name}: shapes {shape} equal={same} max_abs_err={err} kernel "
-                f"{ms:.4f} ms plain {plain_ms:.4f} ms"
-                + (f"; kernel at full n {full_ms:.4f} ms" if full_ms else ""))
-            self.kernels[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                                  "shapes": shape, "full_n_ms": full_ms}
-            if not same:
-                raise AssertionError(f"{name}: kernel != plain version")
-
-        # first_of_run at the build's n, in full (run_info's rb scan)
-        starts = torch.ones(n, dtype=torch.bool, device=dev)
-        starts[1:] = gsa[1:] != gsa[:-1]
-        idx = torch.arange(n, dtype=torch.int32, device=dev)
-        compare("first_of_run@build_n", kfr.first_of_run_scan,
-                kfr.first_of_run_scan_plain, (starts, idx))
-        del starts, idx
-        # full-n kernel times, then a slice of SLICE ranks around the
-        # longest LCP for kernel vs plain
-        lcp_full = cuda_median_ms(lambda: klcp.lcp_pairs(text, sa), reps=3,
-                                  inner=1, warmup=1)
-        occ_full = cuda_median_ms(lambda: kocc.occ_count_unique(lcp, lcp0, gsa),
-                                  reps=3, inner=1, warmup=1)
+        # full-n kernel times beside their bounds, then a slice of SLICE
+        # ranks around the longest LCP for kernel vs plain
         end_excl = int(torch.argmax((gsa != gsa[0]).to(torch.uint8))) - 1
-        occd_full = cuda_median_ms(
-            lambda: kocc.occ_count_doubly(lcp, dl, gsa, g2, 100, end_excl),
-            reps=3, inner=1, warmup=1)
+        fulls = {
+            "lcp_pairs": (lambda: klcp.lcp_pairs(text, sa),
+                          bound_lcp_pairs(text, sa, lcp)),
+            "occ_count": (lambda: kocc.occ_count_unique(lcp, lcp0, gsa),
+                          bound_occ_unique(lcp, lcp0, gsa)),
+            "occ_count_doubly": (
+                lambda: kocc.occ_count_doubly(lcp, dl, gsa, g2, 100, end_excl),
+                bound_occ_doubly(lcp, dl, gsa, g2, 100, end_excl)),
+        }
+        full_n = {}
+        for name, (fn, bnd) in fulls.items():
+            ms = cuda_median_ms(fn, *full)
+            full_n[name] = {"ms": ms, **bnd}
+            log(f"{name} at full n={n}: {ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+                f"({bnd['bound_by']}: {bnd['bytes']} B, {bnd['ops']} ops) -> "
+                f"{100 * bnd['bound_ms'] / ms:.1f}% of bound")
+        # the thread phase alone: with clamp 32 no pair reaches the warp phase
+        ms = cuda_median_ms(lambda: klcp.lcp_pairs(text, sa, 32), *full)
+        full_n["lcp_pairs"]["thread_phase_ms"] = ms
+        log(f"lcp_pairs at full n, clamp 32 (thread phase only): {ms:.4f} ms")
+        self.results["build_kernels_full_n"] = full_n
         top = int(torch.argmax(lcp))
         lo = max(0, min(top - SLICE // 2, n - SLICE))
         hi = lo + SLICE
@@ -832,17 +972,25 @@ class Smoke:
                                               "max_lcp_in_slice": int(lcp[lo + 1:hi].max())}
         log(f"kernel slice: ranks [{lo}, {hi}) of {n}; longest LCP {int(lcp[top])} "
             f"at rank {top}")
-        compare("lcp_pairs", klcp.lcp_pairs, klcp.lcp_pairs_plain,
-                (text, sa[lo:hi].contiguous()), lcp_full)
+        s_sa = sa[lo:hi].contiguous()
+        s_lcp = lcp[lo:hi + 1].contiguous()
+        s_lcp[0] = s_lcp[-1] = 0          # lcp_pairs of the slice alone
+        slow = 5, 1, 1, 3, 1, 0
+        self.compare("lcp_pairs", klcp.lcp_pairs, klcp.lcp_pairs_plain,
+                     (text, s_sa), bound_lcp_pairs(text, s_sa, s_lcp),
+                     slow[:3], slow[3:])
         s_lcp = lcp[lo:hi + 1].contiguous()
         s_gsa = gsa[lo:hi].contiguous()
-        compare("occ_count", kocc.occ_count_unique, kocc.occ_count_unique_plain,
-                (s_lcp, lcp0[lo:hi].contiguous(), s_gsa), occ_full)
+        self.compare("occ_count", kocc.occ_count_unique, kocc.occ_count_unique_plain,
+                     (s_lcp, lcp0[lo:hi].contiguous(), s_gsa),
+                     bound_occ_unique(s_lcp, lcp0[lo:hi], s_gsa), slow[:3], slow[3:])
         s_other = s_gsa != s_gsa[0]
         s_end = int(torch.argmax(s_other.to(torch.uint8))) - 1 if bool(s_other.any()) else SLICE - 1
-        compare("occ_count_doubly", kocc.occ_count_doubly, kocc.occ_count_doubly_plain,
-                (s_lcp, dl[lo:hi].contiguous(), s_gsa, g2[lo:hi].contiguous(), 100,
-                 s_end), occd_full)
+        d_args = (s_lcp, dl[lo:hi].contiguous(), s_gsa, g2[lo:hi].contiguous(), 100,
+                  s_end)
+        self.compare("occ_count_doubly", kocc.occ_count_doubly,
+                     kocc.occ_count_doubly_plain, d_args, bound_occ_doubly(*d_args),
+                     slow[:3], slow[3:])
 
     def report(self, device_name: str, smi: str):
         import torch
@@ -855,7 +1003,11 @@ class Smoke:
                             "replaces": replaces,
                             "launches": launches.get(path, {}).get(name, 0),
                             "max_abs_err": k.get("max_abs_err"),
-                            "ms": k.get("ms"), "plain_ms": k.get("plain_ms")})
+                            "ms": k.get("ms"), "plain_ms": k.get("plain_ms"),
+                            "bound_ms": k.get("bound_ms"),
+                            "bound_by": k.get("bound_by"),
+                            # no single PyTorch call computes any of these
+                            "library_ms": None})
         os.makedirs(OUT_DIR, exist_ok=True)
         with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
             json.dump({"device": device_name, "nvidia_smi": smi,
@@ -879,7 +1031,6 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     try:
-        import bench  # noqa: F401  (the repo's index generator)
         import cammiq_tpu_torch  # noqa: F401
     except ImportError as e:
         print(f"chip_smoke: run from a checkout of the repository ({e})",
@@ -889,10 +1040,10 @@ def main() -> int:
     smi = nvidia_smi_line()
     log(f"device: {device_name} ({smi})")
     s = Smoke()
-    s.phase("header + kernel build", s.header)
+    s.phase("header + kernel and native builds", s.header)
     if s.failed:
         return 1
-    mdir = s.phase("config-#3 index (host, cold)", s.realistic_index)
+    mdir = s.phase("config-#3 index, device build (set-up)", s.realistic_index)
     reads = s.phase("reads", s.reads)
     art_sess = s.phase("session", s.session, mdir) if mdir and reads else None
     if art_sess:
@@ -904,15 +1055,16 @@ def main() -> int:
         if "main path at config-#3 scale" not in s.failed:
             s.phase("Type-II at config-#3 scale", s.type2_main, art, sess, reads)
         s.phase("profile of one pass", s.profile, sess, reads)
-    s.phase("toy Type-II and device build through the CLI", s.toy_type2)
-    if mdir:
-        corpus = s.phase("device build at config-#3 scale", s.device_build, mdir)
-        if corpus is not None:
-            s.phase("build kernels vs plain versions", s.build_kernels, corpus)
-            del corpus
-    if "jax" in sys.modules:
-        s.failed.append("jax was imported")
-    if s.failed or not art_sess or not mdir:
+        del art, sess, art_sess
+        torch.cuda.empty_cache()
+    s.phase("toy Type-II and build through the CLI", s.toy_type2)
+    s.phase("device build vs CPU build", s.build_vs_cpu)
+    s.phase("build kernels vs plain versions", s.build_kernels)
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "cammiq_tpu", "bench", "benchmarks"))
+    if leaked:
+        s.failed.append(f"imported {leaked}")
+    if s.failed or not mdir:
         log(f"FAILED phases: {s.failed}")
         return 1
     s.report(device_name, smi)

@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, and the
 query path through the kernels against the same path on the CPU.  Every
 test needs a card (marker ``cuda``) and skips without one: the kernels are
-compiled with nvcc and have no CPU mode.  The file imports no JAX, so it
-runs on a GPU host without it:
+compiled with nvcc and have no CPU mode.  The file imports nothing of
+JAX or of the JAX package, so it runs on a GPU host without either:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
@@ -11,9 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from cammiq_tpu.config import BuildConfig, QueryConfig
-from cammiq_tpu.io.fastq import ReadSet
-from cammiq_tpu.query.sortjoin import build_merged_index
+from cammiq_tpu_torch.config import BuildConfig, QueryConfig
 from cammiq_tpu_torch.index import unique as uq
 from cammiq_tpu_torch.index.builder import build_index
 from cammiq_tpu_torch.kernels import cuckoo_verify as kcv
@@ -21,11 +19,12 @@ from cammiq_tpu_torch.kernels import first_of_run as kfr
 from cammiq_tpu_torch.kernels import lcp_pairs as klcp
 from cammiq_tpu_torch.kernels import occ_count as kocc
 from cammiq_tpu_torch.kernels import probe_bloom as kpb
+from cammiq_tpu_torch.io.fastq import ReadSet
 from cammiq_tpu_torch.ops.sa import suffix_array
+from cammiq_tpu_torch.query.merged import build_merged_index
 from cammiq_tpu_torch.query.pipeline import QuerySession
 from cammiq_tpu_torch.query.sortjoin import TorchMergedIndex, collect_matches
-from dist_fixture import make_dist_fixture
-from torch_fixture import large_bucket_index, pair_corpus
+from torch_fixture import dist_fixture, large_bucket_index, pair_corpus
 
 pytestmark = pytest.mark.cuda
 
@@ -40,36 +39,68 @@ def cuda_device():
 
 @pytest.fixture(scope="module")
 def dist_index():
-    art, rs, G = make_dist_fixture(seed=13)
+    art, rs, G = dist_fixture(seed=13)
     return art, build_merged_index(art.unique_index, art.doubly_index), rs, G
 
 
+@pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("lead_start", [False, True])
-@pytest.mark.parametrize("nv", [1, 4])
-@pytest.mark.parametrize("n", [1, 2048, 2049, 1 << 20])
-def test_scan_kernel_matches_plain(cuda_device, n, nv, lead_start):
+@pytest.mark.parametrize("nv", [0, 1, 4])
+@pytest.mark.parametrize("n", [1, 2048, 2049, 4097, 1 << 20])
+def test_scan_kernel_matches_plain(cuda_device, n, nv, lead_start, reverse):
+    """Every mode (index mode at nv = 0, forward and reverse), at sizes
+    below, at and off the 4096-element tile."""
     rng = np.random.default_rng(n + nv)
     flags = rng.random(n) < 0.02
-    flags[0] = lead_start
+    flags[-1 if reverse else 0] = lead_start
     f = torch.from_numpy(flags).to(cuda_device)
     vs = [torch.from_numpy(rng.integers(-(1 << 20), 1 << 20, n)
                            .astype(np.int32)).to(cuda_device) for _ in range(nv)]
     before = kfr.KERNEL.launches
-    got = kfr.first_of_run_scan(f, *vs)
+    got = kfr.first_of_run_scan(f, *vs, reverse=reverse)
     assert kfr.KERNEL.launches == before + 1
-    for g, w in zip(got, kfr.first_of_run_scan_plain(f, *vs)):
+    want = kfr.first_of_run_scan_plain(f, *vs, reverse=reverse)
+    assert len(got) == len(want) == max(nv, 1)
+    for g, w in zip(got, want):
         assert torch.equal(g, w)
 
 
-def test_scan_kernel_matches_plain_2e27(cuda_device):
-    """n = 2^27: 65,536 tiles in the one-block summary scan."""
+@pytest.mark.parametrize("kind", ["all_false", "all_true", "only_first",
+                                  "sparse", "misaligned"])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_scan_kernel_look_back(cuda_device, kind, reverse):
+    """Runs longer than many tiles (the look-back walks through tiles with
+    no start), every element a start, and flags not 16-byte aligned (the
+    byte-load path)."""
+    n = 3 * 4096 * 37 + 5
+    rng = np.random.default_rng(len(kind))
+    flags = {"all_false": np.zeros(n, bool), "all_true": np.ones(n, bool),
+             "only_first": np.arange(n) == (n - 1 if reverse else 0),
+             "sparse": rng.random(n) < 2e-5,
+             "misaligned": rng.random(n) < 1e-3}[kind]
+    f = torch.from_numpy(flags).to(cuda_device)
+    if kind == "misaligned":
+        f = torch.cat([torch.zeros(1, dtype=torch.bool, device=cuda_device), f])[1:]
+        assert f.data_ptr() % 16
+    v = torch.from_numpy(rng.integers(0, 1 << 30, n).astype(np.int32)).to(cuda_device)
+    for args in ((f,), (f, v)):
+        got = kfr.first_of_run_scan(*args, reverse=reverse)
+        want = kfr.first_of_run_scan_plain(*args, reverse=reverse)
+        assert torch.equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("nv", [0, 1])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_scan_kernel_matches_plain_2e27(cuda_device, nv, reverse):
+    """n = 2^27: 32,768 tiles, each mode."""
     n = 1 << 27
     g = torch.Generator(device=cuda_device).manual_seed(0)
     f = torch.rand(n, device=cuda_device, generator=g) < 1e-3
     v = torch.randint(-(1 << 30), 1 << 30, (n,), device=cuda_device,
                       dtype=torch.int32, generator=g)
-    (got,) = kfr.first_of_run_scan(f, v)
-    (want,) = kfr.first_of_run_scan_plain(f, v)
+    vs = (v,) * nv
+    (got,) = kfr.first_of_run_scan(f, *vs, reverse=reverse)
+    (want,) = kfr.first_of_run_scan_plain(f, *vs, reverse=reverse)
     assert torch.equal(got, want)
 
 
@@ -104,6 +135,42 @@ def test_lcp_pairs_kernel_matches_plain(cuda_device, kind, n, clamp):
         # a run of ranks alone
         assert torch.equal(klcp.lcp_pairs(text, sa[777:9999], clamp),
                            klcp.lcp_pairs_plain(text, sa[777:9999], clamp))
+
+
+@pytest.mark.parametrize("case", ["all_long", "to_the_end", "clamp_in_warp",
+                                  "no_long"])
+def test_lcp_pairs_kernel_phases(cuda_device, case):
+    """The two phases: every pair long (copies of one 6 kb segment), long
+    pairs that run into the end of the text, the clamp reached inside the
+    warp phase, and an empty worklist (no LCP of 32 or more)."""
+    rng = np.random.default_rng(len(case))
+    clamp = 0xFFFF
+    if case == "all_long":
+        seg = rng.integers(0, 4, 6000).astype(np.uint8)
+        s = np.concatenate([seg] * 12 + [rng.integers(0, 4, 7).astype(np.uint8)])
+    elif case == "to_the_end":
+        seg = rng.integers(0, 4, 3000).astype(np.uint8)
+        s = np.concatenate([rng.integers(0, 4, 5000).astype(np.uint8), seg,
+                            rng.integers(0, 4, 999).astype(np.uint8), seg])
+    elif case == "clamp_in_warp":
+        s = _repeat_text(rng, 60_000, 5000)
+        clamp = 1000
+    else:
+        s = rng.integers(0, 4, 1 << 14).astype(np.uint8)
+    text = torch.from_numpy(s).to(cuda_device)
+    sa = suffix_array(text)
+    got = klcp.lcp_pairs(text, sa, clamp)
+    want = klcp.lcp_pairs_plain(text, sa, clamp)
+    assert torch.equal(got, want)
+    top = int(want.max())
+    if case == "no_long":
+        assert top < 32
+    elif case == "clamp_in_warp":
+        assert top == clamp
+    else:
+        assert top >= 2900
+    if case == "all_long":
+        assert int((want[1:-1] >= 32).float().mean() * 100) >= 90
 
 
 @pytest.fixture(scope="module")

@@ -1,5 +1,6 @@
 """End to end through both CLIs on the test_e2e.py toy DB: the port
-(`python -m cammiq_tpu_torch.cli --device cpu`) against `cammiq_tpu.cli`."""
+(`python -m cammiq_tpu_torch.cli --device cpu`) against `cammiq_tpu.cli`,
+the index build included."""
 
 import os
 import subprocess
@@ -37,9 +38,9 @@ def toy(tmp_path_factory):
             m.write(f"genome{g + 1}.fasta\t{g + 1}\t{1000 + g}\tGenome_{g + 1}\n")
     mapf = str(root / "genome_map.out")
     iu, idd = str(root / "index_u.npz"), str(root / "index_d.npz")
-    cli_main(["--build", "--both", "-f", mapf, "-D", str(db) + "/", "-k", "20",
-              "-L", "100", "-Lmax", "40", "-h", "20", "-i", iu, idd,
-              "--engine", "numpy"])
+    cli_main(["--device", "cpu", "--build", "--both", "-f", mapf, "-D",
+              str(db) + "/", "-k", "20", "-L", "100", "-Lmax", "40", "-h",
+              "20", "-i", iu, idd, "--engine", "numpy"])
     fq = str(root / "reads.fq")
     simulate(mapf, str(db), fq, str(root / "truth.out"), num_reads=3000,
              L=100, erate=0.01, dist="lognormal", seed=7)
@@ -94,6 +95,51 @@ def test_unported_modes_raise(toy):
     with pytest.raises(NotImplementedError):
         cli_main(["--device", "cpu", "--query", "-t", "2", *args,
                   "-o", str(root / "t.out")])
+
+
+def _npz_arrays(path):
+    with np.load(path) as z:
+        return {k: (z[k].dtype.str, z[k].shape, z[k].tobytes()) for k in z.files}
+
+
+@pytest.mark.parametrize("engine", [None, "numpy"])
+def test_build_cli_any_engine_matches_jax_cli(toy, engine):
+    """``--build`` runs the port's build on ``--device`` whatever
+    ``--engine`` says, in a child process that loads nothing of the JAX
+    package, and writes the tables (every array, byte for byte) and the
+    meta files of ``cammiq_tpu.cli --build``."""
+    root, args = toy
+    mapf, db = args[1], str(root / "fasta") + "/"
+    ours, ref = root / f"cli_{engine}", root / f"cli_ref_{engine}"
+    flags = [*BUILD_FLAGS, "-f", mapf, "-D", db]
+    argv = ["--device", "cpu", "--build", *flags, "-i", str(ours / "index_u.npz"),
+            str(ours / "index_d.npz")] + (["--engine", engine] if engine else [])
+    code = ("import sys; from cammiq_tpu_torch.cli import main; "
+            f"main({argv!r}); "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('cammiq_tpu', 'jax')]; assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    r = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "Time for computing suffix array" in r.stderr
+    jax_cli_main(["--build", *flags, "-i", str(ref / "index_u.npz"),
+                  str(ref / "index_d.npz"), "--engine", "numpy"])
+    for name in ("index_u.npz", "index_d.npz"):
+        got, want = _npz_arrays(ours / name), _npz_arrays(ref / name)
+        assert got == want, name
+    for name in ("genome_lengths.out", "unique_lmer_count_u.out",
+                 "unique_lmer_count_d.out"):
+        assert (ours / name).read_bytes() == (ref / name).read_bytes(), name
+
+
+def test_build_hosts_raises(toy, tmp_path):
+    root, args = toy
+    with pytest.raises(NotImplementedError, match="build_hosts"):
+        cli_main(["--device", "cpu", "--build", *BUILD_FLAGS, "-f", args[1],
+                  "-D", str(root / "fasta") + "/", "--build_hosts", "2",
+                  "-i", str(tmp_path / "u.npz"), str(tmp_path / "d.npz")])
+    assert not any(tmp_path.iterdir())
 
 
 @pytest.fixture(scope="module")

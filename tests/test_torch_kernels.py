@@ -55,6 +55,47 @@ def test_scan_plain_matches_xla_twin(n, nv):
         assert (g.numpy()[:first] == v[0]).all()
 
 
+def _mode_flags(case, n, seed):
+    rng = np.random.default_rng(seed)
+    return {"all_false": np.zeros(n, bool), "all_true": np.ones(n, bool),
+            "only_0": np.arange(n) == 0,
+            "random": rng.random(n) < 0.01}[case]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("n", [1, 4096, 5000])
+@pytest.mark.parametrize("case", ["all_false", "all_true", "only_0", "random"])
+def test_scan_plain_modes_match_flip_and_xla_twin(case, n, reverse):
+    """Index mode (no value array) and ``reverse`` against the formulation
+    they replace (values = arange, and the reverse scan on flipped
+    arrays) and against the XLA twin; 5000 is not a multiple of the
+    kernel's 4096-element tile."""
+    flags = _mode_flags(case, n, seed=n)
+    vals = np.random.default_rng(n + 1).integers(-(1 << 20), 1 << 20, n).astype(np.int32)
+    idx = np.arange(n, dtype=np.int32)
+    f = torch.from_numpy(flags)
+    (got_idx,) = first_of_run_scan_plain(f, reverse=reverse)
+    (got_val,) = first_of_run_scan_plain(f, torch.from_numpy(vals), reverse=reverse)
+    assert got_idx.dtype == torch.int32
+    if reverse:
+        (flip_idx,) = first_of_run_scan_plain(f.flip(0), torch.from_numpy(idx).flip(0))
+        flip_idx = flip_idx.flip(0)
+        twin = [np.asarray(w)[::-1] for w in _first_of_run_scan(
+            jnp.asarray(flags[::-1].copy()), jnp.asarray(idx[::-1].copy()),
+            jnp.asarray(vals[::-1].copy()))]
+    else:
+        (flip_idx,) = first_of_run_scan_plain(f, torch.from_numpy(idx))
+        twin = [np.asarray(w) for w in _first_of_run_scan(
+            jnp.asarray(flags), jnp.asarray(idx), jnp.asarray(vals))]
+    assert torch.equal(got_idx, flip_idx)
+    np.testing.assert_array_equal(got_idx.numpy(), twin[0])
+    np.testing.assert_array_equal(got_val.numpy(), twin[1])
+    if case == "all_true":
+        np.testing.assert_array_equal(got_idx.numpy(), idx)
+    if case == "all_false":
+        assert (got_idx.numpy() == (n - 1 if reverse else 0)).all()
+
+
 @pytest.mark.parametrize("nv", [1, 3])
 def test_scan_plain_matches_pallas(nv):
     """The Pallas kernel (interpret mode) agrees wherever a start leads;

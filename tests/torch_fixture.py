@@ -1,12 +1,16 @@
-"""Hand-made merged indexes for the port's tests (no JAX imported, so the
-card-only tests can use them on a host without jax)."""
+"""Hand-made indexes, corpora and reads for the port's tests, built with
+the port's own code: nothing of the JAX package is imported, so the
+card-only tests use them on a host without it."""
 
 from __future__ import annotations
 
 import numpy as np
 
-from cammiq_tpu.index.table import build_flat_index_from_entries
-from cammiq_tpu.query.sortjoin import build_merged_index
+from cammiq_tpu_torch.config import BuildConfig
+from cammiq_tpu_torch.index.table import build_flat_index_from_entries
+from cammiq_tpu_torch.io.fasta import corpus_from_sequences
+from cammiq_tpu_torch.io.fastq import reads_from_arrays
+from cammiq_tpu_torch.query.merged import build_merged_index
 
 
 ALPHA = np.frombuffer(b"ACGT", dtype=np.uint8)
@@ -30,8 +34,6 @@ def pair_genomes(seed, ng=5, glen=400, seg=90):
 
 
 def pair_corpus(seed, **kw):
-    from cammiq_tpu.io.fasta import corpus_from_sequences
-
     gs, _ = pair_genomes(seed, **kw)
     return corpus_from_sequences([[ALPHA[x].tobytes()] for x in gs])
 
@@ -79,3 +81,36 @@ def large_bucket_index(seed=77):
         reads[b, off:off + len(s)] = s
     lengths = rng.integers(60, 101, 48).astype(np.int32)
     return m, reads, lengths
+
+
+def dist_fixture(seed: int = 5):
+    """``tests/dist_fixture.py:make_dist_fixture`` with the port's build on
+    the CPU (the same index): a 4-genome --both index and 256 reads.
+    Returns (BuildArtifacts, ReadSet, number of genome slots)."""
+    from cammiq_tpu_torch.index.builder import build_index
+
+    rng = np.random.default_rng(seed)
+    length = 400
+    shared = rng.integers(0, 4, size=150)
+    genomes = []
+    for g in range(4):
+        own = rng.integers(0, 4, size=length)
+        ins = int(rng.integers(0, length - 150))
+        seq = np.concatenate([own[:ins], shared, own[ins:]])
+        genomes.append([ALPHA[seq].tobytes()])
+    corpus = corpus_from_sequences(genomes)
+    cfg = BuildConfig(k=12, L=60, Lmax=30, h=12, mode="both")
+    art = build_index(corpus, cfg, device="cpu")
+    reads = []
+    for _ in range(256):
+        g = int(rng.integers(0, 4))
+        c = genomes[g][0]
+        p = int(rng.integers(0, len(c) - 60))
+        r = c[p : p + 60]
+        if rng.random() < 0.5:
+            comp = {65: 84, 67: 71, 71: 67, 84: 65}
+            r = bytes(comp[b] for b in reversed(r))
+        reads.append(r)
+    rs = reads_from_arrays(reads, max_len=64)
+    G = int(corpus.ref_id.max()) + 1
+    return art, rs, G

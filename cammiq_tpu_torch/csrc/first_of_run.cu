@@ -23,7 +23,9 @@
 //     64-bit word: state in bits 32-33, q + 1 in the low 32 bits;
 //   - one warp looks back over 32 predecessors at a time for the nearest
 //     published prefix, waiting only while a nearer tile has not
-//     published (tiles with no start contribute nothing to a max).
+//     published (tiles with no start contribute nothing to a max); the
+//     look-back and the status words are cammiq_common.cuh's, which the
+//     probe compaction shares.
 // Memory access: each thread reads its 16 flags with one 16-byte load;
 // results go through shared memory (swizzled, conflict-free) from the
 // blocked layout to a striped one, so every store is a coalesced int4.
@@ -32,8 +34,7 @@
 // Bound on the card: bytes - index mode reads 1 byte and writes 4 per
 // element (the build's run bounds at n = 6e8: 3.0 GB for both directions),
 // value mode adds nv reads and writes of int32.
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "cammiq_common.cuh"
 
 namespace {
 
@@ -41,27 +42,11 @@ constexpr int kThreads = 256;
 constexpr int kItems = 16;  // flags per thread: one 16-byte load
 constexpr int kTile = kThreads * kItems;
 constexpr int kMaxValues = 4;
-constexpr unsigned kStateAggregate = 1;  // published, no start, prefix unknown
-constexpr unsigned kStatePrefix = 2;     // inclusive prefix known
 
 struct Arrays {
   const int32_t* v[kMaxValues];
   int32_t* o[kMaxValues];
 };
-
-__device__ __forceinline__ unsigned long long load_status(
-    const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void store_status(unsigned long long* p,
-                                             unsigned state, int q) {
-  const unsigned long long v =
-      ((unsigned long long)state << 32) | (unsigned)(q + 1);
-  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
-}
 
 // Exclusive prefix max over the block (identity -1); *total gets the
 // block-wide max.  All threads of the block must call it.
@@ -94,27 +79,6 @@ __device__ int block_exclusive_max(int x, int* total) {
   *total = warp_max[nwarps - 1];
   __syncthreads();  // warp_max is reused by the next call
   return result;
-}
-
-// q of the nearest published prefix before tile t (-1 when none); run by
-// one whole warp.
-__device__ int look_back(const unsigned long long* status, int t) {
-  const int lane = threadIdx.x & 31;
-  for (int base = t - 1;;) {
-    const int p = base - lane;  // lane 0 is the nearest predecessor
-    const unsigned long long w =
-        p >= 0 ? load_status(status + p)
-               : (unsigned long long)kStatePrefix << 32;  // q = -1
-    const unsigned state = (unsigned)(w >> 32);
-    const unsigned unpublished = __ballot_sync(0xFFFFFFFFu, state == 0);
-    const unsigned prefix = __ballot_sync(0xFFFFFFFFu, state == kStatePrefix);
-    const unsigned nearer = prefix ? (prefix & (0u - prefix)) - 1u : 0xFFFFFFFFu;
-    if (unpublished & nearer) continue;  // a nearer tile may still hold a start
-    if (prefix) {
-      return (int)__shfl_sync(0xFFFFFFFFu, (unsigned)w, __ffs(prefix) - 1) - 1;
-    }
-    base -= 32;  // 32 tiles without a start: look further back
-  }
 }
 
 // physical int4 slot of logical slot 4 * c + r (chunk c, quarter r): rows of
@@ -163,18 +127,21 @@ first_of_run_kernel(const uint8_t* __restrict__ flags, int n, int ntiles,
   int total;
   const int before = block_exclusive_max(run, &total);
 
+  // statuses carry q + 1, so a tile with no start publishes 0, the
+  // identity of the max
   if (threadIdx.x == 0) {  // publish before looking back
     if (t == 0 || total >= 0) {
-      store_status(status + t, kStatePrefix, total);
+      store_status(status + t, kStatePrefix, (unsigned)(total + 1));
     } else {
-      store_status(status + t, kStateAggregate, -1);
+      store_status(status + t, kStateAggregate, 0u);
     }
   }
   if (threadIdx.x < 32) {
-    const int carry = t > 0 ? look_back(status, t) : -1;
+    const int carry = t > 0 ? (int)look_back(status, t, 0u, MaxOp()) - 1 : -1;
     if (threadIdx.x == 0) {
       s_carry = carry;
-      if (t > 0 && total < 0) store_status(status + t, kStatePrefix, carry);
+      if (t > 0 && total < 0)
+        store_status(status + t, kStatePrefix, (unsigned)(carry + 1));
     }
   }
   __syncthreads();

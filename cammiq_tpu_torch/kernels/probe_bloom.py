@@ -1,14 +1,23 @@
-"""Probe words + prefix hash + bloom test: plain PyTorch version + wrapper.
+"""Probe words + prefix hash + bloom test + compaction of the survivors:
+plain PyTorch version + wrapper.
 
 Replaces ``cammiq_tpu/query/probe.py:pack_rolling16``, the kw-word window
 stack of ``query/sortjoin.py:collect_matches_sortjoin`` (867-898),
-``_hash_prefix`` (411-432) and ``_bloom_bits``/``_bloom_maybe`` (130-176).
-For every (read b, offset o < O = max(Lp - h + 1, 1)), row i = b * O + o:
+``_hash_prefix`` (411-432), ``_bloom_bits``/``_bloom_maybe`` (130-176) and
+the compaction of the maybe rows (929-941).  Rows are the (read b, offset
+o < O = max(Lp - h + 1, 1)) pairs, row i = b * O + o, N = B * O of them:
 
-    khlo[i]  = primary 32-bit hash of the h-base prefix at (b, o)
-    maybe[i] = all 3 bloom bits of khlo[i] are set in its bloom word
+    key(i)   = primary 32-bit hash of the h-base prefix at (b, o)
+    maybe(i) = all 3 bloom bits of key(i) are set in its bloom word
 
-Kernel: ``csrc/probe_bloom.cu`` (one thread per row; see the source note).
+and the outputs are the maybe rows only, compacted in ascending order:
+``rows[:n]`` (what ``torch.nonzero(maybe)`` gives), ``keys[:n]`` = their
+keys, and ``n`` as an int32 tensor on the rows' device.  The capacity is N,
+so nothing overflows; entries past n are unspecified.
+
+Kernel: ``csrc/probe_bloom.cu`` (a tile of whole reads per block, one
+pass, decoupled look-back for the order; see the source note).  It reads
+``n`` on the device only: a CUDA call makes no host sync.
 """
 
 from __future__ import annotations
@@ -16,9 +25,13 @@ from __future__ import annotations
 import torch
 
 from .. import u32
-from .build import I32, I64, VP, CudaKernel, check_tensor, stream_ptr
+from .build import I32, VP, CudaKernel, check_tensor, load, stream_ptr
 
-KERNEL = CudaKernel("cammiq_probe_bloom", [VP, I64, I32, I32, VP, I32, VP, VP, VP])
+KERNEL = CudaKernel("cammiq_probe_bloom", [VP, I32, I32, I32, VP, I32, VP, VP,
+                                           VP, VP, VP])
+# longest batch width the kernel takes: one read's codes and packed words
+# (5 bytes a base) must fit a block's 227 KB of shared memory
+MAX_LP = 40_000
 
 
 def num_offsets(Lp: int, h: int) -> int:
@@ -28,16 +41,21 @@ def num_offsets(Lp: int, h: int) -> int:
 def window_words(codes: torch.Tensor, starts: torch.Tensor,
                  rows: torch.Tensor) -> torch.Tensor:
     """16-base rolling words (int64, uint32 bits): for each (rows[j],
-    starts[j, ...]) the word packing codes[row, t + s] into bits 2s, with
-    codes at or past Lp read as 0 (``pack_rolling16``)."""
+    starts[j, ...]) the word ORing codes[row, t + s] << 2s, with codes at
+    or past Lp read as 0 (``pack_rolling16``).  A -1 code widens to
+    0xFFFFFFFF, so its field is not disjoint from the higher ones: the
+    words are ORed, not summed."""
     Lp = codes.shape[1]
     s = torch.arange(16, device=codes.device)
     t = starts.unsqueeze(-1) + s                        # [..., 16]
     inb = t < Lp
     r = rows.reshape(rows.shape + (1,) * (t.dim() - rows.dim()))
-    c = codes[r, t.clamp(max=max(Lp - 1, 0))]
-    c = torch.where(inb, u32.widen(c), 0)
-    return (c << (2 * s)).sum(-1) & u32.M32             # disjoint bit fields
+    c = codes[r, t.clamp(max=max(Lp - 1, 0))] if Lp else torch.zeros_like(t)
+    c = torch.where(inb, u32.widen(c), 0) << (2 * s)
+    w = c[..., 0]
+    for k in range(1, 16):
+        w = w | c[..., k]
+    return w & u32.M32
 
 
 def hash_prefix_lo(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
@@ -54,29 +72,40 @@ def bloom_bits(key: torch.Tensor) -> torch.Tensor:
             | (1 << ((z >> 26) & 31)))
 
 
-def probe_bloom_plain(codes: torch.Tensor, bloom: torch.Tensor, h: int,
-                      bloom_log: int):
+def probe_keys_plain(codes: torch.Tensor, h: int) -> torch.Tensor:
+    """int64 uint32 prefix hash of every row, [B * O]."""
     B, Lp = codes.shape
     O = num_offsets(Lp, h)
-    dev = codes.device
-    o = torch.arange(O, device=dev).expand(B, O)
-    b = torch.arange(B, device=dev)
+    o = torch.arange(O, device=codes.device).expand(B, O)
+    b = torch.arange(B, device=codes.device)
     lo = window_words(codes, o, b) & u32.const_mask(min(h, 16))
     if h > 16:
         hi = window_words(codes, o + 16, b) & u32.const_mask(h - 16)
     else:
         hi = torch.zeros_like(lo)
-    key = hash_prefix_lo(lo, hi).reshape(-1)
+    return hash_prefix_lo(lo, hi).reshape(-1)
+
+
+def probe_bloom_plain(codes: torch.Tensor, bloom: torch.Tensor, h: int,
+                      bloom_log: int):
+    """The same contract as ``probe_bloom`` (entries past n are 0);
+    ``torch.nonzero`` makes a host sync."""
+    key = probe_keys_plain(codes, h)
     word = u32.widen(bloom)[key >> (32 - bloom_log)]
     need = bloom_bits(key)
-    maybe = (word & need) == need
-    return maybe.to(torch.uint8), u32.narrow(key)
+    (hit,) = torch.nonzero((word & need) == need, as_tuple=True)
+    N, n = key.shape[0], hit.shape[0]
+    rows = torch.zeros(N, dtype=torch.int32, device=codes.device)
+    keys = torch.zeros(N, dtype=torch.int32, device=codes.device)
+    rows[:n] = hit.to(torch.int32)
+    keys[:n] = u32.narrow(key[hit])
+    return rows, keys, torch.tensor([n], dtype=torch.int32, device=codes.device)
 
 
 def probe_bloom(codes: torch.Tensor, bloom: torch.Tensor, h: int,
                 bloom_log: int):
-    """int8 codes [B, Lp], int32 bloom [2^bloom_log] ->
-    (maybe uint8 [B*O], khlo int32 [B*O] carrying uint32 bits)."""
+    """int8 codes [B, Lp], int32 bloom [2^bloom_log] -> (rows int32 [N],
+    keys int32 [N] carrying uint32 bits, n int32 [1]), N = B * O."""
     if codes.device.type == "cpu":
         return probe_bloom_plain(codes, bloom, h, bloom_log)
     dev = codes.device
@@ -90,9 +119,15 @@ def probe_bloom(codes: torch.Tensor, bloom: torch.Tensor, h: int,
         raise ValueError(f"h={h} out of range")
     B, Lp = codes.shape
     N = B * num_offsets(Lp, h)
-    maybe = torch.empty(N, dtype=torch.uint8, device=dev)
-    khlo = torch.empty(N, dtype=torch.int32, device=dev)
-    if N:
-        KERNEL(codes.data_ptr(), B, Lp, h, bloom.data_ptr(), bloom_log,
-               maybe.data_ptr(), khlo.data_ptr(), stream_ptr(dev))
-    return maybe, khlo
+    if N >= 2**31 or Lp > MAX_LP:
+        raise ValueError(f"probe_bloom: {B} x {Lp} codes exceed the kernel's "
+                         f"int32 rows or its {MAX_LP}-base reads")
+    rows = torch.empty(N, dtype=torch.int32, device=dev)
+    keys = torch.empty(N, dtype=torch.int32, device=dev)
+    n = torch.empty(1, dtype=torch.int32, device=dev)
+    tiles = load().cammiq_probe_bloom_tiles(B, Lp, h)
+    scratch = torch.empty(tiles + 1, dtype=torch.int64, device=dev)
+    KERNEL(codes.data_ptr(), B, Lp, h, bloom.data_ptr(), bloom_log,
+           rows.data_ptr(), keys.data_ptr(), n.data_ptr(), scratch.data_ptr(),
+           stream_ptr(dev))
+    return rows, keys, n

@@ -1,10 +1,16 @@
 """Query session: classify read batches and accumulate counts on the device.
 
 Port of ``cammiq_tpu/query/pipeline.py:QuerySession`` for the single-device
-sort-join engine.  Counts accumulate in int32 tensors on the session's
-device; the pass ends in ONE blocking transfer, which also reads the slot
-overflow count.  On overflow the whole read set re-runs with ``maxm``
-doubled, and the wider ``maxm`` sticks for later runs.
+sort-join engine.  Counts accumulate in views of one int32 tensor on the
+session's device; the pass ends in ONE blocking transfer, which
+also reads the overflow counts, and nothing inside the batch loop waits for
+the device: each batch is staged in a ring of two pinned host buffers and
+copied without blocking (``_Upload``), and ``classify_batch`` makes no
+host sync.  On overflow the whole read set re-runs with the capacity that
+overflowed widened, and the wider capacity sticks for later runs: ``maxm``
+doubles on slot overflow; on hit overflow ``frac`` halves, and from 1 goes
+to 0, the match list's full capacity, which cannot overflow
+(``cammiq_tpu/query/pipeline.py:159, 240-260``).
 
 All three modes are ported: quantification (per-entry rcounts), Type-I
 counts, and sc mode, whose per-pair counts feed Type-II identification.
@@ -95,6 +101,9 @@ class QuerySession:
         self.num_entries_u = dm.eu
         self.num_entries_d = dm.ed
         self.maxm = MAXM_SEED
+        # the JAX session's seed for hit_capacity_frac: denser indexes hit
+        # more buckets per batch (cammiq_tpu/query/pipeline.py:159)
+        self.frac = 16 if dm.NB > (1 << 25) else 32
         self._pair_src = None       # host (rid1, rid2) of the doubly entries
         self._pair_keys_host = None  # int64 [P], sorted
         self._pair_keys = None       # the same on the device
@@ -114,31 +123,27 @@ class QuerySession:
 
     def _run_pass(self, reads: ReadSet, bs: int, with_rcounts: bool,
                   sc_mode: bool):
-        """One pass over the reads; host dict of counts, or None after a
-        slot overflow (maxm is then doubled)."""
+        """One pass over the reads; host dict of counts, or None after an
+        overflow (the capacity that overflowed is then widened)."""
         G = self.num_genome_slots
         dev = self.device
-        etot = self.num_entries_u + self.num_entries_d
         pk = self.pair_keys() if sc_mode else None
         P = pk.shape[0] if sc_mode else 0
-        acc = {
-            "cnts_u": torch.zeros(G, dtype=torch.int32, device=dev),
-            "cnts_d": torch.zeros(G, dtype=torch.int32, device=dev),
-            "nundet": torch.zeros((), dtype=torch.int32, device=dev),
-            "nconf": torch.zeros((), dtype=torch.int32, device=dev),
-            "ovs": torch.zeros((), dtype=torch.int32, device=dev),
-            # [P + 1]: the last slot is a dump for unassigned reads
-            "pairacc": torch.zeros(P + 1, dtype=torch.int32, device=dev),
-        }
+        sizes = {"cnts_u": G, "cnts_d": G, "nundet": 1, "nconf": 1, "ovs": 1,
+                 "ovh": 1,
+                 # [P + 1]: the last slot is a dump for unassigned reads
+                 "pairacc": P + 1}
         if with_rcounts:   # the largest copy of the pass: only when asked
-            acc["rcount"] = torch.zeros(etot + 1, dtype=torch.int32, device=dev)
+            sizes["rcount"] = self.num_entries_u + self.num_entries_d + 1
+        # every counter a view of ONE tensor, so the pass ends in one copy
+        buf = torch.zeros(sum(sizes.values()), dtype=torch.int32, device=dev)
+        acc = dict(zip(sizes, torch.split(buf, list(sizes.values()))))
+        upload = _Upload(dev)
         for batch in reads.batches(bs):
-            codes = torch.from_numpy(batch.codes).to(dev).contiguous()
-            lengths = torch.from_numpy(batch.lengths.astype(np.int32)).to(dev)
-            out = classify_batch(self.dm, codes, lengths, G,
-                                 self.maxm,
-                                 acc.get("rcount"),
-                                 sc_mode=sc_mode)
+            codes, lengths = upload(batch.codes, batch.lengths)
+            out = classify_batch(self.dm, codes, lengths, G, self.maxm,
+                                 acc.get("rcount"), sc_mode=sc_mode,
+                                 frac=self.frac)
             if P:
                 q = (out.pair_lo.to(torch.int64) << 32) | out.pair_hi.to(torch.int64)
                 i = torch.searchsorted(pk, q).clamp_(max=P - 1)
@@ -151,15 +156,18 @@ class QuerySession:
             acc["nundet"] += out.nundet
             acc["nconf"] += out.nconf
             torch.maximum(acc["ovs"], out.overflow_slots, out=acc["ovs"])
-        host = {k: v.cpu().numpy() for k, v in acc.items()}  # the pass's sync
-        ovs = int(host["ovs"])
+            torch.maximum(acc["ovh"], out.overflow_hits, out=acc["ovh"])
+        host = dict(zip(sizes, np.split(buf.cpu().numpy(),  # the pass's sync
+                                        np.cumsum(list(sizes.values()))[:-1])))
+        ovs, ovh = int(host["ovs"][0]), int(host["ovh"][0])
         if ovs:
             self.maxm *= 2
             if self.maxm > MAXM_LIMIT:
                 raise RuntimeError(
                     f"sort-join slot overflow persists (slots={ovs})")
-            return None
-        return host
+        if ovh:
+            self.frac = self.frac // 2 if self.frac > 1 else 0
+        return None if ovs or ovh else host
 
     def batch_size(self, reads: ReadSet) -> int:
         """The configured batch, shrunk to the read count rounded up to a
@@ -205,7 +213,43 @@ class QuerySession:
             cnts_u=host["cnts_u"].astype(np.int64),
             cnts_d=host["cnts_d"].astype(np.int64),
             rcount_u=rc[:eu], rcount_d=rc[eu:eu + self.num_entries_d],
-            nundet=int(host["nundet"]), nconf=int(host["nconf"]),
+            nundet=int(host["nundet"][0]), nconf=int(host["nconf"][0]),
             pair_counts=pair_counts, num_reads=nr,
             mean_read_len=(reads.total_len // nr) if nr else 0,
         )
+
+
+class _Upload:
+    """Host-to-device batch copies.  On a CUDA device each batch is staged
+    in one of two pinned host buffers and copied with ``non_blocking``; a
+    buffer is refilled only after its last copy (two batches back) is
+    done, which its event tells: the host never waits for the stream
+    itself.  Elsewhere a plain copy."""
+
+    DEPTH = 2
+
+    def __init__(self, device):
+        self.device = device
+        self.ring = []
+        self.k = 0
+
+    def __call__(self, codes: np.ndarray, lengths: np.ndarray):
+        lengths = lengths.astype(np.int32, copy=False)
+        if self.device.type != "cuda":
+            return (torch.from_numpy(codes).to(self.device).contiguous(),
+                    torch.from_numpy(lengths).to(self.device))
+        if len(self.ring) < self.DEPTH:
+            self.ring.append((torch.empty(codes.shape, dtype=torch.int8,
+                                          pin_memory=True),
+                              torch.empty(lengths.shape, dtype=torch.int32,
+                                          pin_memory=True),
+                              torch.cuda.Event()))
+        hc, hl, done = self.ring[self.k % self.DEPTH]
+        self.k += 1
+        done.synchronize()          # this buffer's copy of two batches back
+        hc.numpy()[...] = codes
+        hl.numpy()[...] = lengths
+        dc = hc.to(self.device, non_blocking=True)
+        dl = hl.to(self.device, non_blocking=True)
+        done.record(torch.cuda.current_stream(self.device))
+        return dc, dl

@@ -7,18 +7,23 @@ chain-colored index is built on the host (``query/merged.py``); this
 module carries it to the device and probes the forward strand only (see
 ``cammiq_tpu/query/sortjoin.py``'s docstring for why that is exact).
 
-Per batch:
+Per batch, on fixed shapes and with no host sync:
   1. kernel 2 (``probe_bloom``): prefix hash + bloom test for every
-     (read, offset) row;
-  2. ``torch.nonzero`` compaction of the maybe rows - sized at N, so the
-     JAX path's hit capacities (K, K1, KP), which exist only because XLA
-     needs static shapes, and their overflow cannot arise;
-  3. kernel 3 (``cuckoo_verify``): exact span lookup + bucket scan;
-  4. compaction of the found slots, the ``prec`` payload gather, one sort
-     on the int64 key read * 2^31 + gid, dedup, rank within each read via
-     kernel 1 (``first_of_run_scan``), scatter into [B, maxm] slots.
-Slot overflow (more than maxm distinct matches in a read) is counted; the
-session widens maxm and re-runs the pass.
+     (read, offset) row, compacted on the device to the maybe rows in
+     order, their keys and their count;
+  2. kernel 3 (``cuckoo_verify``): exact span lookup + bucket scan over
+     the survivors (count read on the device), appending (row, entry)
+     matches to a list of static capacity KP (``match_capacity``: the
+     JAX path's K and KP from ``hit_capacity_frac``), with the matches
+     beyond it counted as ``overflow_hits``;
+  3. match assembly on [KP]: the ``prec`` payload gather, one sort on the
+     int64 key read * 2^31 + gid (empty slots carry read = B and sort
+     last), dedup, rank within each read via kernel 1
+     (``first_of_run_scan``), scatter into [B, maxm] slots (empty slots
+     and overflowing ranks into a dump slot).
+Slot overflow (more than maxm distinct matches in a read) and hit
+overflow are counted on the device; the session widens maxm or KP and
+re-runs the pass.
 """
 
 from __future__ import annotations
@@ -123,39 +128,59 @@ class TorchMergedIndex:
 
 
 class Matches(NamedTuple):
-    """Distinct-capable match rows sorted by (read, gid), plus the slots."""
+    """Match rows sorted by (read, gid) on [KP], plus the slots.  Empty
+    rows have read = B and distinct False."""
 
     slots: MatchSlots
-    read: torch.Tensor       # int64 [M] read of each match row
-    gid: torch.Tensor        # int32 [M] global entry id
-    distinct: torch.Tensor   # bool [M] first row of its (read, gid)
+    read: torch.Tensor       # int64 [KP] read of each match row
+    gid: torch.Tensor        # int32 [KP] global entry id
+    distinct: torch.Tensor   # bool [KP] first row of its (read, gid)
     overflow_slots: torch.Tensor   # int32 [] distinct matches beyond maxm
+    overflow_hits: torch.Tensor    # int32 [] matches beyond KP
+
+
+# the JAX path's capacity constants (cammiq_tpu/query/sortjoin.py:929,
+# 1267): K's floor, and KP's slack over K + K/4
+HIT_FLOOR = 256
+LIST_SLACK = 256
+
+
+def match_capacity(N: int, n_colors: int, frac: int) -> int:
+    """KP, the match-list capacity for N probe rows: the JAX path's
+    K = N // hit_capacity_frac (at least HIT_FLOOR) and
+    KP = K + K/4 + LIST_SLACK, capped at N * n_colors, the most matches
+    N rows can give.  ``frac = 0`` takes that cap, which cannot
+    overflow."""
+    if frac == 0:
+        return N * n_colors
+    K = min(max(N // frac, HIT_FLOOR), N)
+    return min(K + K // 4 + LIST_SLACK, N * n_colors)
 
 
 def collect_matches(dm: TorchMergedIndex, codes: torch.Tensor,
-                    lengths: torch.Tensor, maxm: int) -> Matches:
+                    lengths: torch.Tensor, maxm: int, frac: int = 0) -> Matches:
     """int8 codes [B, Lp], int32 lengths [B] -> Matches with [B, maxm]
-    slots (``MatchSlots`` of ``collect_matches_sortjoin``)."""
+    slots (``MatchSlots`` of ``collect_matches_sortjoin``), the match list
+    at capacity ``match_capacity(B * O, n_colors, frac)``."""
     B, Lp = codes.shape
     O = num_offsets(Lp, dm.h)
     dev = codes.device
-    maybe, khlo = probe_bloom(codes, dm.bloom, dm.h, dm.bloom_log)
-    rows = torch.nonzero(maybe).squeeze(1)           # host sync: live count
-    found = cuckoo_verify(rows, khlo, codes, lengths, dm.cuckoo,
-                          dm.cuckoo_log, dm.erec, dm.n_colors)
-    fi, _ = torch.nonzero(found >= 0, as_tuple=True)
-    e = found[found >= 0].to(torch.int64)
-    read = rows[fi] // O
-    pr = dm.prec[e]                                   # [M, 3]
-    key = (read << 31) | pr[:, 0].to(torch.int64)
+    KP = match_capacity(B * O, dm.n_colors, frac)
+    rows, keys, n = probe_bloom(codes, dm.bloom, dm.h, dm.bloom_log)
+    mrow, me, counts = cuckoo_verify(rows, keys, n, codes, lengths, dm.cuckoo,
+                                     dm.cuckoo_log, dm.erec, dm.n_colors, KP)
+    valid = torch.arange(KP, device=dev) < counts[0]
+    read = torch.where(valid, mrow // O, B).to(torch.int64)
+    pr = dm.prec.index_select(0, torch.where(valid, me, 0))       # [KP, 3]
+    key = (read << 31) | torch.where(valid, pr[:, 0], BIG).to(torch.int64)
     key, order = torch.sort(key)
-    pr = pr[order]
+    pr = pr.index_select(0, order)
     read = key >> 31
-    gid = pr[:, 0].contiguous()
-    M = key.shape[0]
-    distinct = torch.ones(M, dtype=torch.bool, device=dev)
+    gid = (key & BIG).to(torch.int32)
+    distinct = torch.ones(KP, dtype=torch.bool, device=dev)
     distinct[1:] = key[1:] != key[:-1]
-    newread = torch.ones(M, dtype=torch.bool, device=dev)
+    distinct &= read < B
+    newread = torch.ones(KP, dtype=torch.bool, device=dev)
     newread[1:] = read[1:] != read[:-1]
     # rank among the read's distinct rows (sortjoin.py:1290-1295)
     dint = distinct.to(torch.int32)
@@ -168,14 +193,14 @@ def collect_matches(dm: TorchMergedIndex, codes: torch.Tensor,
 
     def scatter(fill, vals):
         out = torch.full((B * maxm + 1,), fill, dtype=torch.int32, device=dev)
-        out[flat] = vals                              # row B*maxm: dump slot
+        out.scatter_(0, flat, vals)                   # row B*maxm: dump slot
         return out[:B * maxm].reshape(B, maxm)
 
     slots = scatter(BIG, gid)
-    ms = MatchSlots(slots=slots, rid1=scatter(0, pr[:, 1]),
-                    rid2=scatter(0, pr[:, 2]),
+    ms = MatchSlots(slots=slots, rid1=scatter(0, pr[:, 1].contiguous()),
+                    rid2=scatter(0, pr[:, 2].contiguous()),
                     in_u=(slots < BIG) & (slots < dm.eu))
-    return Matches(ms, read, gid, distinct, overflow)
+    return Matches(ms, read, gid, distinct, overflow, counts[1])
 
 
 class BatchCounts(NamedTuple):
@@ -184,6 +209,7 @@ class BatchCounts(NamedTuple):
     nundet: torch.Tensor    # int32 []
     nconf: torch.Tensor     # int32 []
     overflow_slots: torch.Tensor   # int32 []
+    overflow_hits: torch.Tensor    # int32 []
     pair_lo: torch.Tensor   # int32 [B] assigned pair (sc mode) or -1
     pair_hi: torch.Tensor   # int32 [B]
 
@@ -191,19 +217,24 @@ class BatchCounts(NamedTuple):
 def classify_batch(dm: TorchMergedIndex, codes: torch.Tensor,
                    lengths: torch.Tensor, num_genome_slots: int, maxm: int,
                    rcount: torch.Tensor | None = None,
-                   sc_mode: bool = False) -> BatchCounts:
-    """Collect + case analysis for one batch.
+                   sc_mode: bool = False, frac: int = 0) -> BatchCounts:
+    """Collect + case analysis for one batch, with no host sync on a CUDA
+    device.
 
     ``rcount`` (int32 [eu+ed+1], last slot a dump) is the pass
     accumulator: rcount[e] += 1 for every distinct (read, entry) of an
     assigned read, added in place (``part2``, sortjoin.py:1346-1359).
     ``sc_mode`` fills ``pair_lo/pair_hi`` with each read's assigned
-    genome pair (case_analysis); the JAX session takes no rcount then."""
-    mt = collect_matches(dm, codes, lengths, maxm)
+    genome pair (case_analysis); the JAX session takes no rcount then.
+    ``frac`` sizes the match list (``match_capacity``)."""
+    mt = collect_matches(dm, codes, lengths, maxm, frac)
     case = case_analysis(mt.slots, lengths, num_genome_slots, sc_mode=sc_mode)
     if rcount is not None:
-        ok = mt.distinct & case.assigned[mt.read]
+        # empty match rows have read = B: a False row past the last read
+        assigned = torch.cat([case.assigned, case.assigned.new_zeros(1)])
+        ok = mt.distinct & assigned.index_select(0, mt.read)
         tgt = torch.where(ok, mt.gid.to(torch.int64), rcount.shape[0] - 1)
         rcount.index_add_(0, tgt, torch.ones_like(tgt, dtype=torch.int32))
     return BatchCounts(case.cnts_u, case.cnts_d, case.nundet, case.nconf,
-                       mt.overflow_slots, case.pair_lo, case.pair_hi)
+                       mt.overflow_slots, mt.overflow_hits, case.pair_lo,
+                       case.pair_hi)

@@ -19,8 +19,11 @@ nothing of JAX or of the JAX package, and exits nonzero if any phase fails:
    printed;
 3. kernels on the card: each query kernel against its plain PyTorch version
    on the same CUDA tensors at the main path's shapes (one batch of 8192
-   reads x 100 bases; the scan also at n = 2^20), exact equality required,
-   median CUDA-event times of both beside the kernel's bound;
+   reads x 100 bases at the session's match capacity; the scan also at
+   n = 2^20): probe_bloom's survivors, keys and count exactly,
+   cuckoo_verify's match list sorted by (row, entry) with its counts, the
+   scan exactly; median CUDA-event times of both beside the kernel's
+   bound, and the kernel's device-only time;
 4. toy end to end through the CLI (5 x 2000 bp genomes, 4000 simulated
    reads, index built on cuda): quant abundances within 0.01 of the truth
    for all 5 genomes, a Type-I file identical to the one the CPU path
@@ -29,8 +32,11 @@ nothing of JAX or of the JAX package, and exits nonzero if any phase fails:
    batches of 8192 reads, then build_problem + solve_quant; the kernels'
    launch counters are zeroed just before and read just after, and every
    kernel must have launched; one batch must give identical counts through
-   the kernels (cuda) and the plain versions (cpu).  Steady-state reads/s,
-   session start and peak device memory are printed;
+   the kernels (cuda) and the plain versions (cpu), and one batch, in quant
+   and in sc mode, must run under torch.cuda.set_sync_debug_mode("error")
+   (no host sync); the host syncs of a whole pass of each mode are counted
+   in "warn" mode and printed.  Steady-state reads/s, session start and peak device
+   memory are printed;
 6. Type-II at config-#3 scale: the same reads in sc mode (launch counters
    zeroed before, read after); cnts_u/cnts_d/nundet/nconf must equal the
    quant pass, the pair counts go to solve_ident, steady-state sc and quant
@@ -58,8 +64,10 @@ nothing of JAX or of the JAX package, and exits nonzero if any phase fails:
    (the plain versions loop in Python over live sets, too slow for 6e8
    ranks within the time limit); exact equality required.
 
-Every kernel time is printed beside its bound: the least time the card
-could take for the call, the larger of its bytes (each input read once,
+Every kernel time is printed beside its bound and its device-only time
+(CUDA events around calls queued behind a sleep kernel, so they run back
+to back on the device without the host's launch cost).  The bound is the least time the card could take
+for the call, the larger of its bytes (each input read once,
 each output written once, counting what this call's data needs) over
 HBM_BYTES_PER_S and its operations over SCALAR_OPS_PER_S.
 
@@ -83,6 +91,7 @@ import sys
 import tempfile
 import time
 import traceback
+import warnings
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "chiprun_out")
@@ -93,6 +102,9 @@ TOY_TOL = 0.01
 BUILD_CHECK_GENOMES = 64
 SLICE = 1 << 24
 DEV = "cuda"
+# what torch's sync debug mode "warn" says at each host sync (its notice
+# about the mode itself says "synchronizing" too)
+SYNC_WARNING = "called a synchronizing CUDA operation"
 # H100 SXM datasheet peaks: HBM3 bandwidth, and the
 # float32 rate outside the tensor cores, taken as the peak of the scalar
 # integer work these kernels do (the larger rate gives the smaller bound)
@@ -160,6 +172,56 @@ def cuda_median_ms(fn, reps: int = 11, inner: int = 20, warmup: int = 3) -> floa
     return statistics.median(times)
 
 
+def device_ms(fn, calls: int = 20, reps: int = 3) -> float | None:
+    """Device time of one call without the host's issue cost: a sleep
+    kernel holds the stream while the host enqueues `calls` calls, so the
+    CUDA events time them back to back on the device.  Median of `reps`;
+    None when the host could not enqueue the calls within the sleep."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    enqueue_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    sleep_s = 4 * enqueue_s + 1e-3
+    times = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(sleep_s * 2e9))       # >= sleep_s below 2 GHz
+        t = time.perf_counter()
+        s.record()
+        for _ in range(calls):
+            fn()
+        e.record()
+        queued = time.perf_counter() - t < sleep_s
+        e.synchronize()
+        if queued:
+            times.append(s.elapsed_time(e) / calls)
+    return statistics.median(times) if times else None
+
+
+def probe_canon(out, args):
+    """probe_bloom's survivors, keys and count (entries past n are not
+    part of the result)."""
+    rows, keys, n = out
+    k = int(n[0])
+    return rows[:k], keys[:k], n
+
+
+def match_canon(out, args):
+    """cuckoo_verify's written matches as int64 row << 32 | entry, sorted
+    (their order is not part of the result), and its counts."""
+    import torch
+
+    mrow, me, counts = out
+    m = min(int(counts[0]), args[-1])
+    return torch.sort((mrow[:m].long() << 32) | me[:m].long()).values, counts
+
+
 # ---- bounds: the least time the card could take for one call
 
 def bound(nbytes: float, ops: float = 0.0) -> dict:
@@ -177,36 +239,40 @@ def bound_first_of_run(is_start, *values) -> dict:
     return bound(n + (8 * nv if nv else 4) * n)
 
 
-def bound_probe_bloom(codes, bloom, h, blog, khlo) -> dict:
-    """The codes, the bloom words this batch touches, both outputs."""
+def bound_probe_bloom(codes, bloom, h, blog, n) -> dict:
+    """The codes, the bloom words this batch touches, 8 bytes a survivor
+    (row and key) and the count."""
     import torch
 
-    from cammiq_tpu_torch import u32
+    from cammiq_tpu_torch.kernels.probe_bloom import probe_keys_plain
 
-    words = torch.unique(u32.widen(khlo) >> (32 - blog)).numel()
-    return bound(codes.numel() + 4 * words + 5 * khlo.numel())
+    words = torch.unique(probe_keys_plain(codes, h) >> (32 - blog)).numel()
+    return bound(codes.numel() + 4 * words + 8 * int(n[0]) + 4)
 
 
-def bound_cuckoo_verify(args, found, h) -> dict:
-    """The rows and their hashes, the codes and lengths of the reads they
-    fall in, the cuckoo rows they hash to, the entries they match (a lower
-    bound: the bucket scan reads every entry of the span), the output."""
+def bound_cuckoo_verify(args, out) -> dict:
+    """The survivors (row and key) and their count, the codes and lengths
+    of the reads they fall in, the cuckoo rows they hash to, the entries
+    they match (a lower bound: the bucket scan reads every entry of the
+    span), 8 bytes a match written and the two counts."""
     import torch
 
     from cammiq_tpu_torch import u32
     from cammiq_tpu_torch.kernels.cuckoo_verify import cuckoo_pos
-    from cammiq_tpu_torch.kernels.probe_bloom import num_offsets
 
-    rows, khlo, codes, lengths, cuckoo, clog, erec, _ = args
-    K = rows.numel()
-    Lp = codes.shape[1]
-    reads = torch.unique(rows // num_offsets(Lp, h)).numel()
-    key = u32.widen(khlo[rows])
+    rows, keys, n, codes, lengths, cuckoo, clog, erec, _, kp = args
+    mrow, me, counts = out
+    K = int(n[0])
+    M = min(int(counts[0]), kp)
+    O = rows.shape[0] // codes.shape[0]
+    reads = torch.unique(rows[:K] // O).numel()
+    key = u32.widen(keys[:K])
     crows = torch.unique(torch.cat([cuckoo_pos(key, 0, clog),
                                     cuckoo_pos(key, 1, clog)])).numel()
-    ents = torch.unique(found[found >= 0]).numel()
-    return bound(12 * K + reads * (Lp + 4) + crows * cuckoo.shape[1] * 4
-                 + ents * erec.shape[1] * 4 + 4 * found.numel())
+    ents = torch.unique(me[:M]).numel()
+    return bound(8 * K + 4 + reads * (codes.shape[1] + 4)
+                 + crows * cuckoo.shape[1] * 4 + ents * erec.shape[1] * 4
+                 + 8 * M + 8)
 
 
 def bound_lcp_pairs(text, sa, lcp) -> dict:
@@ -272,7 +338,9 @@ def read_counts(path: str, results: dict) -> dict:
     return got
 
 
-def max_abs_err(a, b) -> int:
+def max_abs_err(a, b) -> float:
+    if a.shape != b.shape:
+        return float("inf")
     return int((a.to("cpu").long() - b.to("cpu").long()).abs().max()) if a.numel() else 0
 
 
@@ -328,9 +396,10 @@ class Smoke:
             return None
 
     def compare(self, name, kern, plain, args, bnd, reps=(11, 20, 3),
-                plain_reps=(11, 20, 3), **kw):
-        """Kernel against its plain version on the same CUDA tensors:
-        exact equality, median CUDA-event times, the bound beside them."""
+                plain_reps=(11, 20, 3), canon=None, **kw):
+        """Kernel against its plain version on the same CUDA tensors: equal
+        results (``canon`` maps an output to what must be equal), median
+        CUDA-event times, the device-only time, the bound beside them."""
         import torch
 
         got = kern(*args, **kw)
@@ -338,17 +407,23 @@ class Smoke:
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
+        if canon is not None:
+            got, want = canon(got, args), canon(want, args)
         err = max(max_abs_err(g, w) for g, w in zip(got, want))
-        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        same = all(g.shape == w.shape and torch.equal(g, w)
+                   for g, w in zip(got, want))
         ms = cuda_median_ms(lambda: kern(*args, **kw), *reps)
+        dev_ms = device_ms(lambda: kern(*args, **kw), max(reps[1], 5))
         plain_ms = cuda_median_ms(lambda: plain(*args, **kw), *plain_reps)
         shape = [tuple(a.shape) for a in args if torch.is_tensor(a)]
+        dev = (f"{dev_ms:.4f} ms, {100 * bnd['bound_ms'] / dev_ms:.1f}% of bound"
+               if dev_ms else "not measured: the host outran the sleep")
         log(f"{name}: shapes {shape} equal={same} max_abs_err={err} kernel "
-            f"{ms:.4f} ms plain {plain_ms:.4f} ms bound {bnd['bound_ms']:.4f} ms "
-            f"({bnd['bound_by']}: {bnd['bytes']} B, {bnd['ops']} ops) -> "
-            f"{100 * bnd['bound_ms'] / ms:.1f}% of bound")
-        self.kernels[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                              "shapes": shape, **bnd}
+            f"{ms:.4f} ms (device only {dev}) plain {plain_ms:.4f} ms "
+            f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}: {bnd['bytes']} B, "
+            f"{bnd['ops']} ops) -> {100 * bnd['bound_ms'] / ms:.1f}% of bound")
+        self.kernels[name] = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                              "plain_ms": plain_ms, "shapes": shape, **bnd}
         if not same:
             raise AssertionError(f"{name}: kernel != plain version")
         return got
@@ -505,7 +580,7 @@ class Smoke:
             setattr(sj, name, rec)
         try:
             sj.classify_batch(sess.dm, codes, lengths, sess.num_genome_slots,
-                              sess.maxm)
+                              sess.maxm, frac=sess.frac)
         finally:
             for name, orig in originals.items():
                 setattr(sj, name, orig)
@@ -513,14 +588,17 @@ class Smoke:
         scan_big = (torch.from_numpy(rng.random(SCAN_N) < 0.05).to(dev),
                     torch.from_numpy(rng.integers(0, 1 << 30, SCAN_N)
                                      .astype(np.int32)).to(dev))
-        pb_args, (_, khlo) = captured["probe_bloom"]
-        cv_args, found = captured["cuckoo_verify"]
+        pb_args, (_, _, n) = captured["probe_bloom"]
+        cv_args, cv_out = captured["cuckoo_verify"]
         fr_args, _ = captured["first_of_run_scan"]
-        h = sess.dm.h
+        log(f"batch: {n.item()} survivors of {pb_args[0].shape[0]} x "
+            f"{cv_args[0].shape[0] // pb_args[0].shape[0]} rows, "
+            f"{cv_out[2].tolist()} matches (found, beyond KP = {cv_args[-1]})")
         self.compare("probe_bloom", kpb.probe_bloom, kpb.probe_bloom_plain,
-                     pb_args, bound_probe_bloom(*pb_args, khlo))
+                     pb_args, bound_probe_bloom(*pb_args, n), canon=probe_canon)
         self.compare("cuckoo_verify", kcv.cuckoo_verify, kcv.cuckoo_verify_plain,
-                     cv_args, bound_cuckoo_verify(cv_args, found, h))
+                     cv_args, bound_cuckoo_verify(cv_args, cv_out),
+                     canon=match_canon)
         self.compare("first_of_run", kfr.first_of_run_scan,
                      kfr.first_of_run_scan_plain, fr_args,
                      bound_first_of_run(*fr_args))
@@ -627,7 +705,7 @@ class Smoke:
         first_s = time.time() - t
         launches = read_counts("quant", self.results)
         log(f"main path (first run incl. solve): {first_s:.3f} s, maxm "
-            f"{sess.maxm}, launches {launches}")
+            f"{sess.maxm}, frac {sess.frac}, launches {launches}")
         self.quant_counts = counts
         assigned = int(counts.cnts_u.sum() + counts.cnts_d.sum() // 2)
         log(f"classified {assigned}/{reads.num_reads} reads; undetermined "
@@ -670,12 +748,48 @@ class Smoke:
             rc = torch.zeros(art.eu + art.ed + 1, dtype=torch.int32, device=dm.device)
             bc = classify_batch(dm, torch.from_numpy(codes).to(dm.device),
                                 torch.from_numpy(lengths).to(dm.device), G,
-                                sess.maxm, rc)
+                                sess.maxm, rc, frac=sess.frac)
             outs.append([x.cpu() for x in (*bc, rc)])
         same = all(torch.equal(a, b) for a, b in zip(*outs))
         log(f"one batch, kernels vs plain versions: identical={same}")
         if not same:
             raise AssertionError("kernel path and plain path counts differ")
+        self.results["syncs"] = self.sync_check(sess, reads, G, rc.shape[0])
+
+    def sync_check(self, sess, reads, G, nrc):
+        """One batch in quant and in sc mode under sync debug mode "error"
+        (a host sync raises), then the host syncs of one pass of each mode,
+        counted in "warn" mode."""
+        import torch
+
+        from cammiq_tpu_torch.query.sortjoin import classify_batch
+
+        codes = torch.from_numpy(reads.codes[:BATCH]).to(sess.device)
+        lengths = torch.from_numpy(reads.lengths[:BATCH]).to(sess.device)
+        rc = torch.zeros(nrc, dtype=torch.int32, device=sess.device)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for sc in (False, True):
+                classify_batch(sess.dm, codes, lengths, G, sess.maxm,
+                               None if sc else rc, sc_mode=sc, frac=sess.frac)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        sess.pair_keys()    # set-up: the pair table's one upload, before sc mode
+        counts = {}
+        for mode in ("quant", "sc"):
+            torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    sess.run(reads, sc_mode=mode == "sc")
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            counts[mode] = sum(SYNC_WARNING in str(w.message) for w in caught)
+        log(f"one batch in quant and sc mode under sync debug mode 'error': no "
+            f"host sync; host syncs of one pass of {N_BATCHES} batches: {counts}")
+        return {"batch": 0, "pass": counts}
 
     # ---- 7. where a steady-state pass spends device time
     def profile(self, sess, reads):
@@ -764,7 +878,7 @@ class Smoke:
         for dm in (sess.dm, dm_cpu):
             bc = classify_batch(dm, torch.from_numpy(reads.codes[:BATCH]).to(dm.device),
                                 torch.from_numpy(reads.lengths[:BATCH]).to(dm.device),
-                                G, sess.maxm, sc_mode=True)
+                                G, sess.maxm, sc_mode=True, frac=sess.frac)
             outs.append([x.cpu() for x in bc])
         same = all(torch.equal(a, b) for a, b in zip(*outs))
         npair = int((outs[0][5] >= 0).sum())

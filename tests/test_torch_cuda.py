@@ -7,6 +7,8 @@ JAX or of the JAX package, so it runs on a GPU host without either:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -23,7 +25,9 @@ from cammiq_tpu_torch.io.fastq import ReadSet
 from cammiq_tpu_torch.ops.sa import suffix_array
 from cammiq_tpu_torch.query.merged import build_merged_index
 from cammiq_tpu_torch.query.pipeline import QuerySession
-from cammiq_tpu_torch.query.sortjoin import TorchMergedIndex, collect_matches
+import cammiq_tpu_torch.query.sortjoin as tsj
+from cammiq_tpu_torch.query.sortjoin import (TorchMergedIndex, classify_batch,
+                                             collect_matches)
 from torch_fixture import dist_fixture, large_bucket_index, pair_corpus
 
 pytestmark = pytest.mark.cuda
@@ -223,32 +227,101 @@ def test_occ_count_kernel_saturates(cuda_device):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("h,Lp", [(12, 100), (20, 100), (26, 100), (26, 37),
-                                  (20, 16)])
-def test_probe_bloom_kernel_matches_plain(cuda_device, h, Lp):
-    rng = np.random.default_rng(h * 1000 + Lp)
-    codes = torch.from_numpy(rng.integers(0, 4, (512, Lp)).astype(np.int8))
+@pytest.mark.parametrize("h,Lp,B", [(12, 100, 512), (20, 100, 512),
+                                    (26, 100, 512), (26, 37, 512),
+                                    (20, 16, 512), (26, 100, 8192),
+                                    (20, 16, 5000), (26, 12000, 6)])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_probe_bloom_kernel_matches_plain(cuda_device, h, Lp, B, aligned):
+    """The survivors in order, their keys and their count equal the plain
+    version's (torch.nonzero), -1 codes and zero-length padded reads
+    included; many tiles (B = 8192, and 5000 reads of Lp < h: one row a
+    read), one read a tile above 48 KB of shared memory (Lp = 12000), and
+    codes whose span is not 16-byte aligned."""
+    rng = np.random.default_rng(h * 1000 + Lp + B)
+    x = rng.integers(0, 4, (B, Lp)).astype(np.int8)
+    x[rng.random(x.shape) < 0.02] = -1
+    x[-3:] = 0
+    flat = torch.zeros(B * Lp + 3, dtype=torch.int8, device=cuda_device)
+    codes = flat[0 if aligned else 3:][:B * Lp].view(B, Lp)
+    codes.copy_(torch.from_numpy(x))
+    assert (codes.data_ptr() % 16 == 0) == aligned
     bloom = torch.from_numpy(rng.integers(-2**31, 2**31, 1 << 16).astype(np.int32))
-    codes, bloom = codes.to(cuda_device), bloom.to(cuda_device)
-    got = kpb.probe_bloom(codes, bloom, h, 16)
+    bloom = bloom.to(cuda_device)
+    before = kpb.KERNEL.launches
+    rows, keys, n = kpb.probe_bloom(codes, bloom, h, 16)
+    assert kpb.KERNEL.launches == before + 1
     want = kpb.probe_bloom_plain(codes, bloom, h, 16)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
-    assert 0 < int(got[0].sum()) < got[0].shape[0]
+    assert torch.equal(n, want[2])
+    k = int(n[0])
+    assert torch.equal(rows[:k], want[0][:k]) and torch.equal(keys[:k], want[1][:k])
+    assert 0 < k < rows.shape[0]
 
 
-def test_cuckoo_verify_kernel_matches_plain(cuda_device, dist_index):
-    _, m, rs, _ = dist_index
+def _match_pairs(mrow, me, counts, kp):
+    m = min(int(counts[0]), kp)
+    return torch.sort((mrow[:m].long() << 32) | me[:m].long()).values
+
+
+@pytest.mark.parametrize("tight", [False, True])
+@pytest.mark.parametrize("index", ["dist", "large_bucket"])
+def test_cuckoo_verify_kernel_matches_plain(cuda_device, dist_index, index, tight):
+    """The match list sorted by (row, e) equals the plain list; ``tight``
+    sizes KP at half the matches: the counts still agree and every slot
+    written holds a match of the plain list.  large_bucket walks spans of
+    more than 8 entries."""
+    if index == "dist":
+        _, m, rs, _ = dist_index
+        reads, lens = rs.codes, rs.lengths
+    else:
+        m, reads, lens = large_bucket_index()
     dm = TorchMergedIndex.from_merged(m, cuda_device)
-    codes = torch.from_numpy(rs.codes).to(cuda_device)
-    lengths = torch.from_numpy(rs.lengths).to(cuda_device)
-    maybe, khlo = kpb.probe_bloom(codes, dm.bloom, dm.h, dm.bloom_log)
-    rows = torch.nonzero(maybe).squeeze(1)
-    args = (rows, khlo, codes, lengths, dm.cuckoo, dm.cuckoo_log, dm.erec,
+    codes = torch.from_numpy(reads).to(cuda_device)
+    lengths = torch.from_numpy(lens).to(cuda_device)
+    rows, keys, n = kpb.probe_bloom(codes, dm.bloom, dm.h, dm.bloom_log)
+    args = (rows, keys, n, codes, lengths, dm.cuckoo, dm.cuckoo_log, dm.erec,
             dm.n_colors)
-    got = kcv.cuckoo_verify(*args)
-    assert torch.equal(got, kcv.cuckoo_verify_plain(*args))
-    assert int((got >= 0).sum()) > 0
+    full = rows.shape[0] * dm.n_colors
+    want = kcv.cuckoo_verify_plain(*args, full)
+    total = int(want[2][0])
+    assert total > 0
+    kp = total // 2 if tight else full
+    before = kcv.KERNEL.launches
+    got = kcv.cuckoo_verify(*args, kp)
+    assert kcv.KERNEL.launches == before + 1
+    assert got[2].tolist() == [total, max(total - kp, 0)]
+    got_pairs = _match_pairs(*got, kp)
+    want_pairs = _match_pairs(*want, full)
+    if tight:
+        assert got_pairs.shape[0] == kp
+        assert torch.isin(got_pairs, want_pairs).all()
+    else:
+        assert torch.equal(got_pairs, want_pairs)
+
+
+@pytest.mark.parametrize("sc_mode", [False, True])
+def test_classify_batch_makes_no_host_sync(cuda_device, dist_index, sc_mode):
+    """One batch through the kernels under sync debug mode "error": any
+    host sync raises.  Its counts equal the plain path's."""
+    art, m, rs, G = dist_index
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        dm = TorchMergedIndex.from_merged(m, dev)
+        codes = torch.from_numpy(rs.codes).to(dev)
+        lengths = torch.from_numpy(rs.lengths).to(dev)
+        rc = torch.zeros(m.eu + m.ed + 1, dtype=torch.int32, device=dev)
+        rc = None if sc_mode else rc
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            bc = classify_batch(dm, codes, lengths, G, 16, rc, sc_mode=sc_mode,
+                                frac=32)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        outs.append([x.cpu() for x in (*bc, *([] if rc is None else [rc]))])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("index,maxm", [("dist", 16), ("dist", 2),
@@ -284,6 +357,50 @@ def test_session_cuda_matches_cpu(cuda_device, dist_index):
     for f in ("cnts_u", "cnts_d", "rcount_u", "rcount_d"):
         np.testing.assert_array_equal(getattr(runs[1], f), getattr(runs[0], f))
     assert (runs[1].nundet, runs[1].nconf) == (runs[0].nundet, runs[0].nconf)
+
+
+@pytest.mark.parametrize("sc_mode", [False, True])
+def test_session_hit_overflow_cuda_matches_cpu(cuda_device, dist_index, sc_mode,
+                                               monkeypatch):
+    """Match lists from 20 slots: both sessions overflow, widen frac and
+    end with the same counts."""
+    art, _, rs, G = dist_index
+    monkeypatch.setattr(tsj, "HIT_FLOOR", 16)
+    monkeypatch.setattr(tsj, "LIST_SLACK", 0)
+    cfg = QueryConfig(h=art.unique_index.h, batch_size=256)
+    runs = []
+    for dev in ("cpu", cuda_device):
+        sess = QuerySession(art.unique_index, art.doubly_index, G, cfg, device=dev)
+        sess.frac = 1024
+        runs.append(sess.run(rs, sc_mode=sc_mode))
+        assert sess.frac <= 128
+    for f in ("cnts_u", "cnts_d", "rcount_u", "rcount_d"):
+        np.testing.assert_array_equal(getattr(runs[1], f), getattr(runs[0], f))
+    assert (runs[1].nundet, runs[1].nconf) == (runs[0].nundet, runs[0].nconf)
+    assert runs[1].pair_counts == runs[0].pair_counts
+
+
+@pytest.mark.parametrize("sc_mode", [False, True])
+def test_session_pass_syncs_once(cuda_device, dist_index, sc_mode):
+    """A warm pass of four batches waits for the device once: its
+    end-of-pass transfer (sync debug mode "warn" counts every host
+    sync)."""
+    art, _, rs, G = dist_index
+    cfg = QueryConfig(h=art.unique_index.h, batch_size=64)
+    sess = QuerySession(art.unique_index, art.doubly_index, G, cfg,
+                        device=cuda_device)
+    sess.run(rs, sc_mode=sc_mode)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            sess.run(rs, sc_mode=sc_mode)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # torch's message for a sync, not its notice about the debug mode
+    assert sum("called a synchronizing CUDA operation" in str(w.message)
+               for w in caught) == 1
 
 
 def test_session_sc_mode_cuda_matches_cpu(cuda_device, dist_index):

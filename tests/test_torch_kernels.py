@@ -131,11 +131,18 @@ def _jax_probe(codes, h, bloom, bloom_log):
     return np.asarray(khlo), np.asarray(maybe)
 
 
+@pytest.mark.parametrize("noncanon", [False, True])
 @pytest.mark.parametrize("h", [20, 26])
 @pytest.mark.parametrize("Lp", [100, 37, 16])
-def test_probe_bloom_plain_matches_jax(h, Lp):
+def test_probe_bloom_plain_matches_jax(h, Lp, noncanon):
+    """The compacted survivors equal JAX's maybe rows and their keys.
+    ``noncanon``: -1 codes (non-ACGT, which pack_rolling16 widens to
+    0xFFFFFFFF) and zero-length padded reads, as a padded batch holds."""
     rng = np.random.default_rng(h * 1000 + Lp)
     codes = rng.integers(0, 4, (48, Lp)).astype(np.int8)
+    if noncanon:
+        codes[rng.random(codes.shape) < 0.03] = -1
+        codes[-4:] = 0
     # a filter over half of the probed prefixes plus random keys, so both
     # outcomes of the membership test occur
     khlo_all, _ = _jax_probe(codes, h, np.zeros(1 << 12, np.uint32), 12)
@@ -143,11 +150,16 @@ def test_probe_bloom_plain_matches_jax(h, Lp):
                            rng.integers(0, 1 << 32, 5000).astype(np.uint32)])
     bloom, blog = _build_bloom(np.sort(keys))
     khlo, maybe = _jax_probe(codes, h, bloom, blog)
-    m, k = probe_bloom_plain(torch.from_numpy(codes),
-                             torch.from_numpy(bloom.view(np.int32)), h, blog)
-    np.testing.assert_array_equal(k.numpy().view(np.uint32), khlo)
-    np.testing.assert_array_equal(m.numpy().astype(bool), maybe)
-    assert 0 < int(maybe.sum()) < maybe.shape[0]
+    rows, k, n = probe_bloom_plain(torch.from_numpy(codes),
+                                   torch.from_numpy(bloom.view(np.int32)), h, blog)
+    n = int(n[0])
+    assert rows.shape == k.shape == (maybe.shape[0],)
+    np.testing.assert_array_equal(rows[:n].numpy(), np.nonzero(maybe)[0])
+    np.testing.assert_array_equal(k[:n].numpy().view(np.uint32), khlo[maybe])
+    assert 0 < n < maybe.shape[0]
+    if noncanon:      # the -1 codes reach the hashes
+        clean = np.where(codes < 0, 0, codes).astype(np.int8)
+        assert (_jax_probe(clean, h, bloom, blog)[0] != khlo).any()
 
 
 def _cuckoo_fixture(seed=5, nd=20000):

@@ -19,7 +19,9 @@ from cammiq_tpu.query.classify import case_analysis as jax_case_analysis
 from cammiq_tpu.query.pipeline import QuerySession as JaxSession
 from cammiq_tpu_torch.query.classify import MatchSlots, case_analysis
 from cammiq_tpu_torch.query.pipeline import QuerySession
-from cammiq_tpu_torch.query.sortjoin import TorchMergedIndex, collect_matches
+import cammiq_tpu_torch.query.sortjoin as tsj
+from cammiq_tpu_torch.query.sortjoin import (TorchMergedIndex, collect_matches,
+                                             match_capacity)
 from dist_fixture import make_dist_fixture
 from torch_fixture import ALPHA, flat_table, large_bucket_index, pair_genomes, rc
 
@@ -64,6 +66,7 @@ def test_match_slots_match_jax(dist_index, unroll, maxm, monkeypatch):
     _assert_slots_equal(mt.slots, jax_ms)
     assert int(mt.overflow_slots) == jax_ovs
     assert (maxm == 2) == (jax_ovs > 0)
+    assert int(mt.overflow_hits) == 0      # frac 0: the list's full capacity
 
 
 def test_match_slots_four_color_chain():
@@ -208,6 +211,38 @@ def test_session_unique_only_matches_jax(session_setup):
     want = JaxSession(art.unique_index, None, G, cfg, engine="sortjoin").run(rs)
     got = QuerySession(art.unique_index, None, G, cfg, device="cpu").run(rs)
     _assert_counts_equal(got, want)
+
+
+def test_match_capacity():
+    """The JAX path's K and KP (config #3: 8192 reads x 75 offsets, two
+    colors, frac 32 -> KP 24,256), capped at N * n_colors; frac 0 is the
+    cap."""
+    N = 8192 * 75
+    assert match_capacity(N, 2, 32) == 24_256
+    assert match_capacity(N, 2, 0) == 2 * N
+    assert match_capacity(N, 1, 1) == N
+    assert match_capacity(100, 2, 32) == 200          # K = min(256, N)
+
+
+@pytest.mark.parametrize("sc_mode", [False, True])
+def test_session_hit_overflow_widens(session_setup, sc_mode, monkeypatch):
+    """A session whose match list starts at 20 slots against ~190 matches
+    a batch overflows, widens frac pass by pass (1024 -> 64) and still
+    gives the JAX session's counts.  The fixture's batches match less than
+    the JAX floor (KP >= 576), so the test lowers the floor and slack."""
+    art, rs, G, cfg, want = session_setup
+    if sc_mode:
+        want = JaxSession(art.unique_index, art.doubly_index, G, cfg,
+                          engine="sortjoin").run(rs, sc_mode=True)
+    monkeypatch.setattr(tsj, "HIT_FLOOR", 16)
+    monkeypatch.setattr(tsj, "LIST_SLACK", 0)
+    sess = QuerySession(art.unique_index, art.doubly_index, G, cfg, device="cpu")
+    sess.frac = 1024
+    N = cfg.batch_size * (int(rs.lengths.max()) - cfg.h + 1)
+    assert tsj.match_capacity(N, sess.dm.n_colors, sess.frac) == 20
+    got = sess.run(rs, sc_mode=sc_mode)
+    assert sess.frac <= 128
+    _assert_sc_counts_equal(got, want)
 
 
 @pytest.fixture(scope="module")

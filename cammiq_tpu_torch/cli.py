@@ -15,11 +15,27 @@ distributed builder) is not ported yet and raises NotImplementedError.
   quantification (default)                  ported
   --read_cnts (Type I)                      ported
   --read_cnts --doubly_unique (Type II)     ported
-  -t N > 1, --model_shards > 1              not ported yet: raise
-                                            NotImplementedError
+  -t N > 1, --model_shards M > 1            ported: the distributed query
+                                            over a data x model grid of
+                                            the launcher's ranks
+  --profile DIR                             ported: a torch.profiler trace
+                                            of the query loop, one file a
+                                            rank
 
 The query path always takes the bloom -> cuckoo probe join; ``--engine``
 is accepted and ignored (the JAX package's engines are equality-tested).
+
+The distributed query runs one process a rank under a launcher, e.g. two
+ranks on the CPU (gloo) or two cards (NCCL, each rank on
+``cuda:LOCAL_RANK``):
+
+    torchrun --nproc_per_node 2 -m cammiq_tpu_torch.cli --device cpu \
+        --query -f map.out -i idx_u.npz idx_d.npz -q reads.fq -t 2
+
+Every rank reads the same files; rank 0 alone solves and writes the
+output.  Without a launcher, ``-t N`` finds one rank, says so on stderr
+and runs the single-device session, as ``cammiq_tpu.cli`` does on one
+device.
 """
 
 from __future__ import annotations
@@ -260,6 +276,47 @@ def run_build(a: dict, device: str) -> None:
 
 
 def run_query(a: dict, device: str) -> None:
+    """``--query``.  ``-t N > 1`` and ``--model_shards M > 1`` run the
+    distributed query (``cammiq_tpu/cli.py:316-343``) over the ranks a
+    launcher started: ``model = min(M, W)`` and ``data = min(N if N > 1
+    else W // model, W // model)`` for a world of W ranks.  A grid of one
+    rank says so and runs the single-device session.  A process group this
+    call set up is destroyed when it returns."""
+    import torch.distributed as dist
+
+    from .parallel.mesh import ProcessGrid
+    from .parallel.multihost import initialize_cluster, local_device
+
+    if a["t"] <= 1 and a["model_shards"] <= 1:
+        _run_query(a, device, None)
+        return
+    own = not dist.is_initialized()
+    if initialize_cluster(device):
+        device = local_device(device)
+    try:
+        W = dist.get_world_size() if dist.is_initialized() else 1
+        model = max(1, min(a["model_shards"], W))
+        data = max(1, min(a["t"] if a["t"] > 1 else W // model, W // model))
+        grid = None
+        if data * model > 1:
+            grid = ProcessGrid(data, model, device)
+            if grid.rank == 0:
+                print(f"Distributed query mesh: data={data} x model={model}.",
+                      file=sys.stderr)
+        else:
+            print(f"-t {a['t']} requested but only {W} device(s) present; "
+                  f"running single-device.", file=sys.stderr)
+        if grid is None or grid.active:
+            _run_query(a, device, grid)
+    finally:
+        if own and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run_query(a: dict, device: str, grid) -> None:
+    """The query on one device, or this rank's part of it on ``grid``:
+    every rank parses the same files and runs every pass; rank 0 alone
+    solves, prints and writes the output file."""
     from .device import resolve_device
     from .index.artifact import is_merged_artifact, load_merged_artifact
     from .index.table import load_flat_index_pair
@@ -269,12 +326,11 @@ def run_query(a: dict, device: str) -> None:
     from .models.ident import solve_ident
     from .models.quant import build_problem, solve_quant
     from .query.pipeline import QuerySession
+    from .utils.profiling import device_trace
 
-    if a["t"] > 1 or a["model_shards"] > 1:
-        raise NotImplementedError(
-            "distributed query (-t > 1, --model_shards > 1) is not ported "
-            "to cammiq_tpu_torch yet")
     dev = resolve_device(device)
+    rank = grid.rank if grid is not None else 0
+    lead = rank == 0
     if not a["fi_u"]:
         _err("Please specify index files (-i).")
     artifact = None
@@ -307,9 +363,10 @@ def run_query(a: dict, device: str) -> None:
     qcfg = QueryConfig(h=index_u.h, erate=a["erate"], min_read_len=a["min_rl"],
                        id_mode=a["id_mode"], fine=fine, ident=identp)
     if artifact is not None:
-        sess = QuerySession.from_artifact(artifact, G, qcfg, device=dev)
+        sess = QuerySession.from_artifact(artifact, G, qcfg, device=dev,
+                                          grid=grid)
     else:
-        sess = QuerySession(index_u, index_d, G, qcfg, device=dev)
+        sess = QuerySession(index_u, index_d, G, qcfg, device=dev, grid=grid)
 
     files = a["fq_names"] or (list_fastq_dir(a["fq_dir"]) if a["fq_dir"] else [])
     if not files:
@@ -317,44 +374,49 @@ def run_query(a: dict, device: str) -> None:
     out_path = a["output"] or "./quantification_results.out"
     gl, nus, nds = table.arrays()
     mode = "w"
-    for fi, path in enumerate(files):
-        reads = read_fastq(path, min_len=a["min_rl"])
-        # Type-I needs only cnts_u, which sc mode leaves unchanged
-        counts = sess.run(reads, sc_mode=a["id_mode"] == 2,
-                          with_rcounts=a["id_mode"] == 0, verbose=True)
-        print(f"Number of unlabeled reads: {counts.nundet}.", file=sys.stderr)
-        print(f"Number of reads with conflict labels: {counts.nconf}.", file=sys.stderr)
-        name = os.path.basename(path)
-        with open(out_path, mode) as f:
-            if a["id_mode"] == 0:
-                prob = build_problem(
-                    index_u, index_d, counts.rcount_u, counts.rcount_d,
-                    counts.cnts_u.astype(np.float64),
-                    counts.cnts_d.astype(np.float64),
-                    nus.astype(np.float64), nds.astype(np.float64),
-                    gl, counts.mean_read_len, counts.num_reads,
-                    a["erate"], fine,
-                )
-                exist, cov, info = solve_quant(
-                    prob, verbose=a["debug"], time_limit=a["ilp_time_limit"],
-                    enum_cap=a["ilp_enum_cap"], device=dev)
-                print(f"{int(prob.exist0.sum())} genomes may exist in query "
-                      f"{name}.", file=sys.stderr)
-                print(f"Time for quantification: "
-                      f"{info['solve_time']*1e3:.0f} ms.", file=sys.stderr)
-                outmod.write_quant_block(f, name, table, exist, cov,
-                                         last_file=(fi == len(files) - 1))
-            elif a["id_mode"] == 1:
-                if fi == 0:
-                    outmod.write_counts_header(f, table)
-                outmod.write_counts_row(f, name, counts.cnts_u, table.n_species)
-            else:
-                if fi == 0:
-                    outmod.write_counts_header(f, table)
-                exist, redist = solve_ident(
-                    counts.cnts_u, counts.cnts_d, counts.pair_counts, identp)
-                outmod.write_counts_row(f, name, redist, table.n_species)
-        mode = "a"
+    with device_trace(a["profile"], dev, rank):
+        for fi, path in enumerate(files):
+            reads = read_fastq(path, min_len=a["min_rl"])
+            # Type-I needs only cnts_u, which sc mode leaves unchanged
+            counts = sess.run(reads, sc_mode=a["id_mode"] == 2,
+                              with_rcounts=a["id_mode"] == 0, verbose=lead)
+            if not lead:        # the other ranks of a grid only classify
+                continue
+            print(f"Number of unlabeled reads: {counts.nundet}.", file=sys.stderr)
+            print(f"Number of reads with conflict labels: {counts.nconf}.",
+                  file=sys.stderr)
+            name = os.path.basename(path)
+            with open(out_path, mode) as f:
+                if a["id_mode"] == 0:
+                    prob = build_problem(
+                        index_u, index_d, counts.rcount_u, counts.rcount_d,
+                        counts.cnts_u.astype(np.float64),
+                        counts.cnts_d.astype(np.float64),
+                        nus.astype(np.float64), nds.astype(np.float64),
+                        gl, counts.mean_read_len, counts.num_reads,
+                        a["erate"], fine,
+                    )
+                    exist, cov, info = solve_quant(
+                        prob, verbose=a["debug"], time_limit=a["ilp_time_limit"],
+                        enum_cap=a["ilp_enum_cap"], device=dev)
+                    print(f"{int(prob.exist0.sum())} genomes may exist in query "
+                          f"{name}.", file=sys.stderr)
+                    print(f"Time for quantification: "
+                          f"{info['solve_time']*1e3:.0f} ms.", file=sys.stderr)
+                    outmod.write_quant_block(f, name, table, exist, cov,
+                                             last_file=(fi == len(files) - 1))
+                elif a["id_mode"] == 1:
+                    if fi == 0:
+                        outmod.write_counts_header(f, table)
+                    outmod.write_counts_row(f, name, counts.cnts_u,
+                                            table.n_species)
+                else:
+                    if fi == 0:
+                        outmod.write_counts_header(f, table)
+                    exist, redist = solve_ident(
+                        counts.cnts_u, counts.cnts_d, counts.pair_counts, identp)
+                    outmod.write_counts_row(f, name, redist, table.n_species)
+            mode = "a"
 
 
 def main(argv: Optional[List[str]] = None) -> None:

@@ -1,8 +1,9 @@
 """Typed configuration objects: a copy of ``cammiq_tpu/config.py``.
 
 The build, query and solver parameters of the JAX package, unchanged, so
-both packages read the same flags the same way (``MeshConfig`` of the
-distributed query is not ported yet).  The original replaces the
+both packages read the same flags the same way (``MeshConfig``, which
+no caller reads, is not copied: the port's grid is
+``parallel/mesh.py:ProcessGrid``).  The original replaces the
 reference's hand-rolled argv loop and positional ``fine_parameters``
 vectors (reference: src/main.cpp:74-446, src/query.cpp:231-236,305-306)
 with explicit dataclasses.  Defaults are byte-for-byte the reference

@@ -21,6 +21,17 @@ npz session or from the artifact's ``prec`` rows with ``gid >= eu``.  It is
 built once per session on the host and kept on the device as one sorted
 int64 key ``lo << 32 | hi`` per pair.
 
+With ``grid=`` (a ``parallel/mesh.py:ProcessGrid``, the counterpart of
+the JAX session's ``mesh=``) the session runs distributed
+(``parallel/dist_query.py``): the rank holds its shard of the index, takes
+its ``1/data`` of every batch (the batch size rounds up to a multiple of
+``data``), and the pass ends in one ``all_reduce`` of the counter buffer
+over the grid before its one transfer.  The overflow flags ride in that
+buffer: a sum is nonzero exactly when some rank's flag was set, so every
+rank widens alike and re-runs the pass with the others.  The genome,
+undetermined, conflict and pair counts and ``rcount`` are added only by the
+rank at model index 0 of each row, which runs the case analysis.
+
 ``QueryCounts`` is a copy of ``cammiq_tpu/query/pipeline.py:QueryCounts``.
 The session takes this package's ``FlatIndex`` and ``MergedArtifact`` and,
 duck-typed by their numpy attributes with no import, the JAX package's.
@@ -29,15 +40,19 @@ duck-typed by their numpy attributes with no import, the JAX package's.
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import QueryConfig
 from ..device import resolve_device
 from ..index.table import FlatIndex
 from ..io.fastq import ReadSet
+from ..parallel.dist_query import DistSortJoinSession
+from ..parallel.mesh import ProcessGrid
 from ..utils.timing import Timings, stage_timer
 from .merged import build_merged_index
 from .sortjoin import TorchMergedIndex, classify_batch
@@ -66,26 +81,37 @@ class QuerySession:
 
     def __init__(self, index_u: FlatIndex, index_d: Optional[FlatIndex],
                  num_genome_slots: int, cfg: QueryConfig | None = None,
-                 device="cuda"):
+                 device="cuda", grid: ProcessGrid | None = None):
         """From a FlatIndex pair (``.npz``): the merged index is built on
-        the host with ``build_merged_index``."""
+        the host with ``build_merged_index`` (on a grid, by every rank,
+        which then keeps its own shard)."""
         if index_d is not None and index_d.h != index_u.h:
             raise ValueError("unique/doubly hash lengths must match at query time")
         dev = resolve_device(device)
-        self._init(TorchMergedIndex.from_merged(
-            build_merged_index(index_u, index_d), dev), num_genome_slots, cfg)
+        merged = build_merged_index(index_u, index_d)
+        if grid is None:
+            self._init(TorchMergedIndex.from_merged(merged, dev),
+                       num_genome_slots, cfg)
+        else:
+            ds = DistSortJoinSession.from_merged(grid, merged, dev)
+            self._init(ds.dm, num_genome_slots, cfg, ds)
         if index_d is not None and index_d.num_entries:
             self._pair_src = (index_d.rid1, index_d.rid2)
 
     @classmethod
     def from_artifact(cls, artifact, num_genome_slots: int,
-                      cfg: QueryConfig | None = None,
-                      device="cuda") -> "QuerySession":
-        """From a precomputed merged-index artifact (index/artifact.py)."""
+                      cfg: QueryConfig | None = None, device="cuda",
+                      grid: ProcessGrid | None = None) -> "QuerySession":
+        """From a precomputed merged-index artifact (index/artifact.py); on
+        a grid the rank reads only its shard's pages of the memmaps."""
         self = cls.__new__(cls)
         dev = resolve_device(device)
-        self._init(TorchMergedIndex.from_artifact(artifact, dev),
-                   num_genome_slots, cfg)
+        if grid is None:
+            self._init(TorchMergedIndex.from_artifact(artifact, dev),
+                       num_genome_slots, cfg)
+        else:
+            ds = DistSortJoinSession.from_artifact(grid, artifact, dev)
+            self._init(ds.dm, num_genome_slots, cfg, ds)
         if artifact.ed:
             prec = np.asarray(artifact.prec)
             dd = prec[prec[:, 0] >= artifact.eu]
@@ -93,9 +119,12 @@ class QuerySession:
         return self
 
     def _init(self, dm: TorchMergedIndex, num_genome_slots: int,
-              cfg: QueryConfig | None) -> None:
+              cfg: QueryConfig | None,
+              dist_session: DistSortJoinSession | None = None) -> None:
         self.cfg = cfg or QueryConfig()
         self.dm = dm
+        self.dist = dist_session
+        self.grid = dist_session.grid if dist_session is not None else None
         self.device = dm.device
         self.num_genome_slots = num_genome_slots
         self.num_entries_u = dm.eu
@@ -139,11 +168,18 @@ class QuerySession:
         buf = torch.zeros(sum(sizes.values()), dtype=torch.int32, device=dev)
         acc = dict(zip(sizes, torch.split(buf, list(sizes.values()))))
         upload = _Upload(dev)
+        grid = self.grid
+        rows = slice(None) if grid is None else grid.data_slice(bs)
+        classify = (partial(classify_batch, self.dm) if self.dist is None
+                    else self.dist.classify_batch)
         for batch in reads.batches(bs):
-            codes, lengths = upload(batch.codes, batch.lengths)
-            out = classify_batch(self.dm, codes, lengths, G, self.maxm,
-                                 acc.get("rcount"), sc_mode=sc_mode,
-                                 frac=self.frac)
+            codes, lengths = upload(batch.codes[rows], batch.lengths[rows])
+            out = classify(codes, lengths, G, self.maxm, acc.get("rcount"),
+                           sc_mode=sc_mode, frac=self.frac)
+            torch.maximum(acc["ovs"], out.overflow_slots, out=acc["ovs"])
+            torch.maximum(acc["ovh"], out.overflow_hits, out=acc["ovh"])
+            if out.cnts_u is None:      # a grid rank that only probes
+                continue
             if P:
                 q = (out.pair_lo.to(torch.int64) << 32) | out.pair_hi.to(torch.int64)
                 i = torch.searchsorted(pk, q).clamp_(max=P - 1)
@@ -155,8 +191,8 @@ class QuerySession:
             acc["cnts_d"] += out.cnts_d
             acc["nundet"] += out.nundet
             acc["nconf"] += out.nconf
-            torch.maximum(acc["ovs"], out.overflow_slots, out=acc["ovs"])
-            torch.maximum(acc["ovh"], out.overflow_hits, out=acc["ovh"])
+        if grid is not None:        # the pass's one reduction
+            dist.all_reduce(buf, group=grid.group)
         host = dict(zip(sizes, np.split(buf.cpu().numpy(),  # the pass's sync
                                         np.cumsum(list(sizes.values()))[:-1])))
         ovs, ovh = int(host["ovs"][0]), int(host["ovh"][0])
@@ -171,11 +207,15 @@ class QuerySession:
 
     def batch_size(self, reads: ReadSet) -> int:
         """The configured batch, shrunk to the read count rounded up to a
-        power of two (at least 256)."""
+        power of two (at least 256); on a grid, rounded up to a multiple of
+        ``data`` (``cammiq_tpu/query/pipeline.py:406-408``)."""
         bs = self.cfg.batch_size
         if reads.num_reads < bs:
             bs = max(256, 1 << (max(reads.num_reads - 1, 1)).bit_length())
             bs = min(bs, self.cfg.batch_size)
+        if self.grid is not None:
+            dp = self.grid.data
+            bs = (bs + dp - 1) // dp * dp
         return bs
 
     def run(self, reads: ReadSet, sc_mode: bool = False,

@@ -46,16 +46,29 @@ nothing of JAX or of the JAX package, and exits nonzero if any phase fails:
 7. profile: one more quant pass under torch.profiler, device time by
    kernel and the device's busy share of the pass's wall time (the table
    also goes to chiprun_out/chip_smoke_profile.txt);
-8. toy Type-II through the CLI: 5 genomes x 2000 bp with a 300 bp segment
+8. distributed query (parallel/): (a) a world of one rank over NCCL
+   (TCPStore on 127.0.0.1) and its 1 x 1 ProcessGrid;
+   QuerySession.from_artifact(grid=...) builds its shard (the whole index)
+   and must give the single session's quant and sc counts, make no host
+   sync in a quant or sc batch (sync debug mode "error") and one in a pass;
+   quant passes of the single and the grid session timed in turns;
+   (b) two model shards of the config-#3 artifact on the one card (their
+   build timed, their geometry printed), the 16 batches probed through the
+   kernels against both, the slots concatenated as a row's all_gather
+   gives them, then case_analysis and the rcount: counts equal the
+   unsharded session's; each query kernel at the shard's shapes against
+   its plain version, timed beside its whole-index time (launch counters
+   zeroed before (a)'s pass and (b)'s batches, read after);
+9. toy Type-II through the CLI: 5 genomes x 2000 bp with a 300 bp segment
    planted in each pair of neighbours, indexed by `--build --device cuda`
    and by `--build --device cpu` (files must be equal), then a Type-II file
    from `--device cuda` identical to the one from `--device cpu`, with
    nonzero pair counts;
-9. the device build on cuda against the same build on the CPU device (the
+10. the device build on cuda against the same build on the CPU device (the
    plain versions of every kernel), array for array, on the bench generator
    at BUILD_CHECK_GENOMES genomes (chosen so the CPU build takes about two
    minutes); stage seconds of both are printed;
-10. build kernels against their plain versions on the config-#3 build's own
+11. build kernels against their plain versions on the config-#3 build's own
    tensors (recomputed from the corpus): first_of_run at the build's n in
    full, in index and value mode, forward and reverse; lcp_pairs and
    occ_count (unique and doubly) timed at full n (lcp_pairs also with
@@ -80,11 +93,13 @@ Numbers and logs also go to chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import contextlib
+import datetime
 import io
 import json
 import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -127,6 +142,8 @@ KERNEL_INFO = {
 PATH_KERNELS = {
     "quant": ("first_of_run", "probe_bloom", "cuckoo_verify"),
     "typeII": ("first_of_run", "probe_bloom", "cuckoo_verify"),
+    "grid": ("first_of_run", "probe_bloom", "cuckoo_verify"),
+    "shards": ("first_of_run", "probe_bloom", "cuckoo_verify"),
     "build": ("first_of_run", "lcp_pairs", "occ_count"),
 }
 INDEX_FIELDS = ("key_words", "length", "rid1", "rid2", "ucount1", "ucount2",
@@ -336,6 +353,75 @@ def read_counts(path: str, results: dict) -> dict:
     if missing:
         raise AssertionError(f"{path}: kernels not launched {missing}: {got}")
     return got
+
+
+def capture_kernel_calls(fn) -> dict:
+    """Run ``fn`` (one query batch) with each query kernel's wrapper in
+    query/sortjoin.py recording its arguments and result: name ->
+    (args, out) of its last call."""
+    import cammiq_tpu_torch.query.sortjoin as sj
+
+    captured, originals = {}, {}
+    for name in ("probe_bloom", "cuckoo_verify", "first_of_run_scan"):
+        orig = getattr(sj, name)
+        originals[name] = orig
+
+        def rec(*a, _n=name, _f=orig):
+            out = _f(*a)
+            captured[_n] = (a, out)
+            return out
+
+        setattr(sj, name, rec)
+    try:
+        fn()
+    finally:
+        for name, orig in originals.items():
+            setattr(sj, name, orig)
+    return captured
+
+
+def count_syncs(fn) -> int:
+    """Host syncs while ``fn`` runs, counted in sync debug mode "warn"."""
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum(SYNC_WARNING in str(w.message) for w in caught)
+
+
+def profile_pass(run) -> dict:
+    """``run()`` (a warm pass) under torch.profiler: its wall time, the
+    device's busy time, its number of device operations (kernels, copies,
+    memsets) and the device time by kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.time()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t) * 1e3
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev.sort(key=lambda e: -e.self_device_time_total)
+    return {"wall_ms": wall_ms,
+            "device_ms": sum(e.self_device_time_total for e in dev) / 1e3,
+            "device_ops": sum(e.count for e in dev),
+            "lines": [f"{e.self_device_time_total / 1e3:.3f} ms {e.count}x "
+                      f"{e.key[:120]}" for e in dev]}
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 def max_abs_err(a, b) -> float:
@@ -565,25 +651,10 @@ class Smoke:
         dev = sess.device
         codes = torch.from_numpy(reads.codes[:BATCH]).to(dev).contiguous()
         lengths = torch.from_numpy(reads.lengths[:BATCH]).to(dev)
-        # record each wrapper's arguments and result during one real batch
-        captured = {}
-        originals = {}
-        for name in ("probe_bloom", "cuckoo_verify", "first_of_run_scan"):
-            orig = getattr(sj, name)
-            originals[name] = orig
-
-            def rec(*a, _n=name, _f=orig):
-                out = _f(*a)
-                captured[_n] = (a, out)
-                return out
-
-            setattr(sj, name, rec)
-        try:
-            sj.classify_batch(sess.dm, codes, lengths, sess.num_genome_slots,
-                              sess.maxm, frac=sess.frac)
-        finally:
-            for name, orig in originals.items():
-                setattr(sj, name, orig)
+        captured = capture_kernel_calls(
+            lambda: sj.classify_batch(sess.dm, codes, lengths,
+                                      sess.num_genome_slots, sess.maxm,
+                                      frac=sess.frac))
         rng = np.random.default_rng(3)
         scan_big = (torch.from_numpy(rng.random(SCAN_N) < 0.05).to(dev),
                     torch.from_numpy(rng.integers(0, 1 << 30, SCAN_N)
@@ -776,47 +847,27 @@ class Smoke:
         finally:
             torch.cuda.set_sync_debug_mode("default")
         sess.pair_keys()    # set-up: the pair table's one upload, before sc mode
-        counts = {}
-        for mode in ("quant", "sc"):
-            torch.cuda.synchronize()
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                torch.cuda.set_sync_debug_mode("warn")
-                try:
-                    sess.run(reads, sc_mode=mode == "sc")
-                finally:
-                    torch.cuda.set_sync_debug_mode("default")
-            counts[mode] = sum(SYNC_WARNING in str(w.message) for w in caught)
+        counts = {mode: count_syncs(lambda: sess.run(reads, sc_mode=mode == "sc"))
+                  for mode in ("quant", "sc")}
         log(f"one batch in quant and sc mode under sync debug mode 'error': no "
             f"host sync; host syncs of one pass of {N_BATCHES} batches: {counts}")
         return {"batch": 0, "pass": counts}
 
     # ---- 7. where a steady-state pass spends device time
     def profile(self, sess, reads):
-        import torch
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
         sess.run(reads)                                   # warm, maxm settled
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t = time.time()
-            sess.run(reads)
-            torch.cuda.synchronize()
-            wall_us = (time.time() - t) * 1e6
-        dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        dev.sort(key=lambda e: -e.self_device_time_total)
-        busy_us = sum(e.self_device_time_total for e in dev)
-        lines = [f"{e.self_device_time_total / 1e3:.3f} ms {e.count}x {e.key[:120]}"
-                 for e in dev]
-        self.results["profile_wall_ms"] = wall_us / 1e3
-        self.results["profile_device_ms"] = busy_us / 1e3
-        self.results["profile_top"] = lines[:12]
+        prof = profile_pass(lambda: sess.run(reads))
+        self.results["profile_wall_ms"] = prof["wall_ms"]
+        self.results["profile_device_ms"] = prof["device_ms"]
+        self.results["profile_device_ops"] = prof["device_ops"]
+        self.results["profile_top"] = prof["lines"][:12]
         with open(os.path.join(OUT_DIR, "chip_smoke_profile.txt"), "w") as f:
-            f.write("\n".join(lines) + "\n")
-        log(f"one pass under the profiler: wall {wall_us / 1e3:.3f} ms, device "
-            f"busy {busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}%); "
-            f"device time by kernel:\n" + "\n".join(lines[:12]))
+            f.write("\n".join(prof["lines"]) + "\n")
+        log(f"one pass under the profiler: wall {prof['wall_ms']:.3f} ms, device "
+            f"busy {prof['device_ms']:.3f} ms "
+            f"({100 * prof['device_ms'] / prof['wall_ms']:.1f}%), "
+            f"{prof['device_ops']} device operations; device time by kernel:\n"
+            + "\n".join(prof["lines"][:12]))
 
     # ---- 6. Type-II at config-#3 scale
     def type2_main(self, art, sess, reads):
@@ -835,6 +886,7 @@ class Smoke:
         counts = sess.run(reads, sc_mode=True)
         pass_s = time.time() - t
         launches = read_counts("typeII", self.results)
+        self.sc_counts = counts
         for f in ("cnts_u", "cnts_d"):
             if not np.array_equal(getattr(counts, f), getattr(want, f)):
                 raise AssertionError(f"sc-mode {f} differs from the quant pass")
@@ -887,7 +939,7 @@ class Smoke:
         if not same:
             raise AssertionError("sc-mode batch outputs differ kernels vs plain")
 
-    # ---- 8. toy Type-II and the build through the CLI, cuda against cpu
+    # ---- 9. toy Type-II and the build through the CLI, cuda against cpu
     def toy_type2(self):
         import numpy as np
         import torch
@@ -966,7 +1018,7 @@ class Smoke:
         finally:
             shutil.rmtree(root, ignore_errors=True)
 
-    # ---- 9. the device build against the CPU build at a reduced size
+    # ---- 10. the device build against the CPU build at a reduced size
     def build_vs_cpu(self):
         import numpy as np
 
@@ -1012,7 +1064,7 @@ class Smoke:
             f"entries), ulm counts and meta files identical; stages (cuda | cpu):\n"
             + stage_table(stages[DEV], {}, stages["cpu"]))
 
-    # ---- 10. build kernels vs plain versions on the build's tensors
+    # ---- 11. build kernels vs plain versions on the build's tensors
     def build_kernels(self):
         import numpy as np
         import torch
@@ -1106,6 +1158,185 @@ class Smoke:
                      kocc.occ_count_doubly_plain, d_args, bound_occ_doubly(*d_args),
                      slow[:3], slow[3:])
 
+    # ---- 8. distributed query: a world-of-one NCCL grid, two shards on one card
+    def grid(self, art, sess, reads):
+        import numpy as np
+        import torch
+        import torch.distributed as dist
+
+        from cammiq_tpu_torch.config import QueryConfig
+        from cammiq_tpu_torch.parallel.mesh import ProcessGrid
+        from cammiq_tpu_torch.query.pipeline import QuerySession
+
+        G = self.results["genomes"] + 1
+        out = self.results["grid"] = {}
+        store = dist.TCPStore("127.0.0.1", free_port(), 1, True,
+                              timeout=datetime.timedelta(seconds=120))
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=300))
+        try:
+            grid = ProcessGrid(1, 1, sess.device)
+            t = time.time()
+            gsess = QuerySession.from_artifact(
+                art, G, QueryConfig(h=art.h, erate=0.01, batch_size=BATCH),
+                device=DEV, grid=grid)
+            torch.cuda.synchronize()
+            out["grid_session_start_s"] = time.time() - t
+            out["grid_geometry"] = gsess.dist.geometry
+            gsess.run(reads)                    # NCCL set-up, maxm settled
+            zero_counts()
+            counts = gsess.run(reads)
+            out["launches"] = read_counts("grid", self.results)
+            sc = gsess.run(reads, sc_mode=True)
+            for f in ("cnts_u", "cnts_d", "rcount_u", "rcount_d"):
+                if not np.array_equal(getattr(counts, f),
+                                      getattr(self.quant_counts, f)):
+                    raise AssertionError(f"grid quant pass differs in {f}")
+            for c, want, mode in ((counts, self.quant_counts, "quant"),
+                                  (sc, self.sc_counts, "sc")):
+                if (c.nundet, c.nconf, c.pair_counts) != (
+                        want.nundet, want.nconf, want.pair_counts):
+                    raise AssertionError(f"grid {mode} pass differs")
+            if not np.array_equal(sc.cnts_d, self.sc_counts.cnts_d):
+                raise AssertionError("grid sc pass differs in cnts_d")
+            # a grid batch under sync debug mode "error", then a pass's syncs
+            codes = torch.from_numpy(reads.codes[:BATCH]).to(sess.device)
+            lengths = torch.from_numpy(reads.lengths[:BATCH]).to(sess.device)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for scm in (False, True):
+                    gsess.dist.classify_batch(codes, lengths, G, gsess.maxm,
+                                              sc_mode=scm, frac=gsess.frac)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            out["syncs"] = {"batch": 0, "pass": {
+                m: count_syncs(lambda: gsess.run(reads, sc_mode=m == "sc"))
+                for m in ("quant", "sc")}}
+            if out["syncs"]["pass"] != {"quant": 1, "sc": 1}:
+                raise AssertionError(f"grid pass syncs {out['syncs']}")
+            # pass times in turns: single, grid, grid, single, single, grid
+            runs = {"single": [], "grid": []}
+            for who in ("single", "grid", "grid", "single", "single", "grid"):
+                torch.cuda.synchronize()
+                t = time.time()
+                (sess if who == "single" else gsess).run(reads)
+                runs[who].append(time.time() - t)
+            out["pass_s"] = runs
+            # the same two passes under the profiler, for what the grid adds
+            out["profile"] = {who: profile_pass(lambda: r.run(reads))
+                              for who, r in (("single", sess), ("grid", gsess))}
+            for who, pr in out["profile"].items():
+                pr["lines"] = pr["lines"][:14]
+                log(f"{who} pass under the profiler: wall {pr['wall_ms']:.3f} ms, "
+                    f"device busy {pr['device_ms']:.3f} ms, {pr['device_ops']} "
+                    f"device operations; top:\n" + "\n".join(pr["lines"][:8]))
+            log(f"world-of-one NCCL grid (1 x 1): session start "
+                f"{out['grid_session_start_s']:.1f} s, shard "
+                f"{out['grid_geometry']}; quant and sc counts equal the single "
+                f"session's; launches {out['launches']}; no host sync in a "
+                f"quant or sc batch, a pass's syncs {out['syncs']['pass']}; "
+                f"quant passes in turns: single "
+                f"{['%.4f' % r for r in runs['single']]} s, grid "
+                f"{['%.4f' % r for r in runs['grid']]} s")
+            del gsess
+        finally:
+            dist.destroy_process_group()
+        torch.cuda.empty_cache()
+        self.two_shards(art, sess, reads)
+
+    def two_shards(self, art, sess, reads):
+        """Two model shards of the index on the one card, probed through
+        the kernels, their slots concatenated as a row's gather gives
+        them: the counts of a pass equal the unsharded session's."""
+        import numpy as np
+        import torch
+
+        from cammiq_tpu_torch.kernels import cuckoo_verify as kcv
+        from cammiq_tpu_torch.kernels import first_of_run as kfr
+        from cammiq_tpu_torch.kernels import probe_bloom as kpb
+        from cammiq_tpu_torch.parallel import dist_query as dq
+        from cammiq_tpu_torch.query.classify import MatchSlots, case_analysis
+        from cammiq_tpu_torch.query.sortjoin import collect_matches
+
+        G = self.results["genomes"] + 1
+        out = self.results["grid"]
+        src = dq._MergedSource.from_artifact(art)
+        t = time.time()
+        cuts = dq.shard_merged_cuts(src, 2)
+        shards = [dq.shard_index(src, i, cuts, sess.device) for i in range(2)]
+        torch.cuda.synchronize()
+        out["two_shard_build_s"] = time.time() - t
+        _, e_lo, e_hi, e_pad, nb_pad, bloom_log, ck_log = cuts
+        out["two_shard_geometry"] = {
+            "e_pad": e_pad, "nb_pad": nb_pad, "bloom_log": bloom_log,
+            "device_bloom_log": shards[0].bloom_log, "ck_log": ck_log,
+            "entries": [h - l for l, h in zip(e_lo, e_hi)]}
+        log(f"two shards of E={art.E}, NB={art.NB} built in "
+            f"{out['two_shard_build_s']:.1f} s: {out['two_shard_geometry']}")
+        dev = sess.device
+        nrc = art.eu + art.ed + 1
+        acc = {k: torch.zeros(n, dtype=torch.int32, device=dev) for k, n in
+               (("cnts_u", G), ("cnts_d", G), ("nundet", 1), ("nconf", 1),
+                ("ovs", 1), ("ovh", 1), ("rcount", nrc))}
+
+        def batch(codes, lengths):
+            mts = [collect_matches(dm, codes, lengths, sess.maxm, sess.frac)
+                   for dm in shards]
+            slots = MatchSlots(*(torch.cat([getattr(mt.slots, f) for mt in mts], 1)
+                                 for f in MatchSlots._fields))
+            case = case_analysis(slots, lengths, G)
+            dq.add_case_rcounts(acc["rcount"], case)
+            for k in ("cnts_u", "cnts_d", "nundet", "nconf"):
+                acc[k] += getattr(case, k)
+            for mt in mts:
+                acc["ovs"] += mt.overflow_slots
+                acc["ovh"] += mt.overflow_hits
+
+        zero_counts()
+        for b in reads.batches(BATCH):
+            batch(torch.from_numpy(b.codes).to(dev).contiguous(),
+                  torch.from_numpy(b.lengths).to(dev))
+        torch.cuda.synchronize()
+        out["two_shard_launches"] = read_counts("shards", self.results)
+        host = {k: v.cpu().numpy() for k, v in acc.items()}
+        want = self.quant_counts
+        if int(host["ovs"][0]) or int(host["ovh"][0]):
+            raise AssertionError(f"two shards overflowed: {host['ovs']}, {host['ovh']}")
+        rc = host["rcount"][:-1].astype(np.int64)
+        for f, got in (("cnts_u", host["cnts_u"]), ("cnts_d", host["cnts_d"]),
+                       ("rcount_u", rc[:art.eu]), ("rcount_d", rc[art.eu:])):
+            if not np.array_equal(got, getattr(want, f)):
+                raise AssertionError(f"two shards differ in {f}")
+        if (int(host["nundet"][0]), int(host["nconf"][0])) != (want.nundet, want.nconf):
+            raise AssertionError("two shards differ in nundet/nconf")
+        log(f"two shards, {N_BATCHES} batches through the kernels, slots "
+            f"concatenated: counts equal the unsharded session's; launches "
+            f"{out['two_shard_launches']}")
+        # each kernel at the second shard's shapes, beside its time on the
+        # whole index
+        codes = torch.from_numpy(reads.codes[:BATCH]).to(dev).contiguous()
+        lengths = torch.from_numpy(reads.lengths[:BATCH]).to(dev)
+        captured = capture_kernel_calls(lambda: batch(codes, lengths))
+        pb_args, (_, _, n) = captured["probe_bloom"]
+        cv_args, cv_out = captured["cuckoo_verify"]
+        fr_args, _ = captured["first_of_run_scan"]
+        log(f"second shard, one batch: {n.item()} survivors, "
+            f"{cv_out[2].tolist()} matches (found, beyond KP = {cv_args[-1]})")
+        self.compare("probe_bloom@shard", kpb.probe_bloom, kpb.probe_bloom_plain,
+                     pb_args, bound_probe_bloom(*pb_args, n), canon=probe_canon)
+        self.compare("cuckoo_verify@shard", kcv.cuckoo_verify,
+                     kcv.cuckoo_verify_plain, cv_args,
+                     bound_cuckoo_verify(cv_args, cv_out), canon=match_canon)
+        self.compare("first_of_run@shard", kfr.first_of_run_scan,
+                     kfr.first_of_run_scan_plain, fr_args,
+                     bound_first_of_run(*fr_args))
+        for k in ("probe_bloom", "cuckoo_verify", "first_of_run"):
+            full, shard = self.kernels.get(k, {}), self.kernels[f"{k}@shard"]
+            log(f"{k}: whole index {full.get('ms')} ms (device only "
+                f"{full.get('device_ms')}), second of two shards {shard['ms']:.4f} ms "
+                f"(device only {shard['device_ms']})")
+
     def report(self, device_name: str, smi: str):
         import torch
 
@@ -1169,6 +1400,9 @@ def main() -> int:
         if "main path at config-#3 scale" not in s.failed:
             s.phase("Type-II at config-#3 scale", s.type2_main, art, sess, reads)
         s.phase("profile of one pass", s.profile, sess, reads)
+        if "Type-II at config-#3 scale" not in s.failed:
+            s.phase("distributed query: NCCL grid and two shards", s.grid, art,
+                    sess, reads)
         del art, sess, art_sess
         torch.cuda.empty_cache()
     s.phase("toy Type-II and build through the CLI", s.toy_type2)

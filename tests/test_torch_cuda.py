@@ -7,6 +7,7 @@ JAX or of the JAX package, so it runs on a GPU host without either:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import datetime
 import warnings
 
 import numpy as np
@@ -23,6 +24,8 @@ from cammiq_tpu_torch.kernels import occ_count as kocc
 from cammiq_tpu_torch.kernels import probe_bloom as kpb
 from cammiq_tpu_torch.io.fastq import ReadSet
 from cammiq_tpu_torch.ops.sa import suffix_array
+from cammiq_tpu_torch.parallel import dist_query as tdq
+from cammiq_tpu_torch.query.classify import MatchSlots, case_analysis
 from cammiq_tpu_torch.query.merged import build_merged_index
 from cammiq_tpu_torch.query.pipeline import QuerySession
 import cammiq_tpu_torch.query.sortjoin as tsj
@@ -417,6 +420,112 @@ def test_session_sc_mode_cuda_matches_cpu(cuda_device, dist_index):
         np.testing.assert_array_equal(getattr(runs[1], f), getattr(runs[0], f))
     assert (runs[1].nundet, runs[1].nconf) == (runs[0].nundet, runs[0].nconf)
     assert runs[1].pair_counts == runs[0].pair_counts
+
+
+@pytest.fixture(scope="module")
+def nccl_grid():
+    """A world of one rank over NCCL and its 1 x 1 grid."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: NCCL runs only on the card")
+    import torch.distributed as dist
+
+    from cammiq_tpu_torch.parallel.mesh import ProcessGrid
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        yield ProcessGrid(1, 1, dev)
+    finally:
+        dist.destroy_process_group()
+
+
+def _assert_query_counts_equal(got, want):
+    for f in ("cnts_u", "cnts_d", "rcount_u", "rcount_d"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f)
+    assert (got.nundet, got.nconf, got.pair_counts) == (
+        want.nundet, want.nconf, want.pair_counts)
+
+
+@pytest.mark.parametrize("sc_mode", [False, True])
+def test_nccl_grid_session_matches_single(cuda_device, dist_index, nccl_grid,
+                                          sc_mode):
+    """The grid session over NCCL (one gather a batch, one all_reduce a
+    pass) gives the single session's counts, also after widening from
+    maxm=1, from npz and from the same index's artifact."""
+    art, _, rs, G = dist_index
+    cfg = QueryConfig(h=art.unique_index.h, batch_size=64)
+    want = QuerySession(art.unique_index, art.doubly_index, G, cfg,
+                        device=cuda_device).run(rs, sc_mode=sc_mode)
+    sess = QuerySession(art.unique_index, art.doubly_index, G, cfg,
+                        device=cuda_device, grid=nccl_grid)
+    sess.maxm = 1
+    _assert_query_counts_equal(sess.run(rs, sc_mode=sc_mode), want)
+    assert sess.maxm >= 2
+    assert want.cnts_u.sum() > 0
+
+
+@pytest.mark.parametrize("sc_mode", [False, True])
+def test_two_shards_on_one_card_match_unsharded(cuda_device, dist_index, sc_mode):
+    """Two model shards probed through the kernels, their slots
+    concatenated (what the gather gives a row of two ranks): the case
+    analysis and the rcount from it equal the unsharded batch's."""
+    _, m, rs, G = dist_index
+    codes = torch.from_numpy(rs.codes).to(cuda_device)
+    lengths = torch.from_numpy(rs.lengths).to(cuda_device)
+    nrc = m.eu + m.ed + 1
+    rc_want = torch.zeros(nrc, dtype=torch.int32, device=cuda_device)
+    want = classify_batch(TorchMergedIndex.from_merged(m, cuda_device), codes,
+                          lengths, G, 16, None if sc_mode else rc_want,
+                          sc_mode=sc_mode)
+    src = tdq._MergedSource.from_merged(m)
+    cuts = tdq.shard_merged_cuts(src, 2)
+    before = kcv.KERNEL.launches
+    mts = [collect_matches(tdq.shard_index(src, i, cuts, cuda_device), codes,
+                           lengths, 16) for i in range(2)]
+    assert kcv.KERNEL.launches == before + 2
+    slots = MatchSlots(*(torch.cat([getattr(mt.slots, f) for mt in mts], 1)
+                         for f in MatchSlots._fields))
+    case = case_analysis(slots, lengths, G, sc_mode=sc_mode)
+    rc = torch.zeros(nrc, dtype=torch.int32, device=cuda_device)
+    tdq.add_case_rcounts(rc, case)
+    for got, w in ((case.cnts_u, want.cnts_u), (case.cnts_d, want.cnts_d),
+                   (case.nundet, want.nundet), (case.nconf, want.nconf),
+                   (case.pair_lo, want.pair_lo), (case.pair_hi, want.pair_hi)):
+        assert torch.equal(got, w)
+    if not sc_mode:
+        assert torch.equal(rc[:-1], rc_want[:-1]) and int(rc[:-1].sum()) > 0
+    assert all(int(mt.overflow_slots) == 0 for mt in mts)
+
+
+def test_nccl_grid_batch_makes_no_host_sync(cuda_device, dist_index, nccl_grid):
+    """An sc-mode grid batch (probe, gather, case analysis) runs under sync
+    debug mode "error", and a warm grid pass waits for the device once."""
+    art, _, rs, G = dist_index
+    cfg = QueryConfig(h=art.unique_index.h, batch_size=64)
+    sess = QuerySession(art.unique_index, art.doubly_index, G, cfg,
+                        device=cuda_device, grid=nccl_grid)
+    sess.run(rs, sc_mode=True)          # NCCL communicators, pair table
+    codes = torch.from_numpy(rs.codes[:64]).to(cuda_device)
+    lengths = torch.from_numpy(rs.lengths[:64]).to(cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sess.dist.classify_batch(codes, lengths, G, sess.maxm, sc_mode=True,
+                                 frac=sess.frac)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            sess.run(rs, sc_mode=True)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert sum("called a synchronizing CUDA operation" in str(w.message)
+               for w in caught) == 1
 
 
 def test_build_index_cuda_matches_cpu(cuda_device):

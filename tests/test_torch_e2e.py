@@ -90,11 +90,21 @@ def test_cuda_without_card_raises(toy):
     assert not (root / "never.out").exists()
 
 
-def test_unported_modes_raise(toy):
+def test_unported_modes_raise(toy, tmp_path, monkeypatch):
+    """The distributed query is ported: ``-t 2`` no longer raises, and with
+    no launcher it runs the single-device session (test_torch_dist.py runs
+    it over ranks).  The host distributed build, the one mode still not
+    ported, raises before it writes anything."""
     root, args = toy
-    with pytest.raises(NotImplementedError):
-        cli_main(["--device", "cpu", "--query", "-t", "2", *args,
-                  "-o", str(root / "t.out")])
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    cli_main(["--device", "cpu", "--query", "--read_cnts", "-t", "2", *args,
+              "-o", str(root / "t.out")])
+    assert (root / "t.out").read_text().startswith("QUERY/TAXID")
+    with pytest.raises(NotImplementedError, match="build_hosts"):
+        cli_main(["--device", "cpu", "--build", "--unique", "-f", args[1],
+                  "-D", str(root / "fasta") + "/", "--build_hosts", "2",
+                  "-i", str(tmp_path / "u.npz")])
+    assert not any(tmp_path.iterdir())
 
 
 def _npz_arrays(path):

@@ -22,8 +22,11 @@ distributed builder) is not ported yet and raises NotImplementedError.
                                             of the query loop, one file a
                                             rank
 
-The query path always takes the bloom -> cuckoo probe join; ``--engine``
-is accepted and ignored (the JAX package's engines are equality-tested).
+``--engine`` picks the query engine as ``cammiq_tpu.cli`` does (313-315):
+``gather`` runs the gather engine (the per-offset probe of both FlatIndex
+tables, ``query/classify.py``) for ``.npz`` indexes on one device; ``auto``
+and every other value run the bloom -> cuckoo probe join
+(``query/sortjoin.py``), which a merged artifact and a grid always take.
 
 The distributed query runs one process a rank under a launcher, e.g. two
 ranks on the CPU (gloo) or two cards (NCCL, each rank on
@@ -362,11 +365,15 @@ def _run_query(a: dict, device: str, grid) -> None:
     )
     qcfg = QueryConfig(h=index_u.h, erate=a["erate"], min_read_len=a["min_rl"],
                        id_mode=a["id_mode"], fine=fine, ident=identp)
+    engine = {"auto": "sortjoin"}.get(a["engine"], a["engine"])
+    if engine not in ("sortjoin", "gather"):
+        engine = "sortjoin"
     if artifact is not None:
         sess = QuerySession.from_artifact(artifact, G, qcfg, device=dev,
                                           grid=grid)
     else:
-        sess = QuerySession(index_u, index_d, G, qcfg, device=dev, grid=grid)
+        sess = QuerySession(index_u, index_d, G, qcfg, device=dev, grid=grid,
+                            engine=engine)
 
     files = a["fq_names"] or (list_fastq_dir(a["fq_dir"]) if a["fq_dir"] else [])
     if not files:

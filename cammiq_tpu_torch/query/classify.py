@@ -1,14 +1,23 @@
-"""Read classification: the reference's case analysis on torch tensors.
+"""Read classification: the reference's case analysis on torch tensors,
+and the gather engine's classifier.
 
-Port of ``cammiq_tpu/query/classify.py:case_analysis`` (160-260), op for op,
-so its outputs are bit-identical.  Per read, over its distinct matched
-entries: U = #distinct unique genome ids, P = #distinct genome pairs, and
+Port of ``cammiq_tpu/query/classify.py``, op for op, so its outputs are
+bit-identical: ``case_analysis`` (160-260) and, for the gather engine,
+``revcomp_batch`` (65-75), ``collect_matches`` (78-137),
+``rcounts_from_case`` (263-275) and ``classify_batch`` (277-304).  Per
+read, over its distinct matched entries: U = #distinct unique genome ids,
+P = #distinct genome pairs, and
 
   P==0: U==0 -> undetermined; U==1 -> cnts_u[r*]++; U>1 -> conflict
   P>=1: U>1 -> conflict; U==1 -> cnts_u[r*]++, cnts_d[r*]++ if every pair
         holds r*, else conflict; U==0, P==1 -> cnts_d[a]++, cnts_d[b]++;
         U==0, P>=2 -> cnts_d[i*]++ if the pairs' intersection is {i*},
         else conflict
+
+The gather engine probes both strands against both FlatIndex tables
+(``collect_matches``: one launch of ``kernels/gather_probe.py`` on a CUDA
+tensor, its plain version on a CPU one) and classifies every batch with no
+host sync.  It has no capacity to overflow.
 """
 
 from __future__ import annotations
@@ -17,7 +26,8 @@ from typing import NamedTuple
 
 import torch
 
-BIG = 2**31 - 1
+from ..kernels.gather_probe import BIG, gather_probe
+from .probe import DeviceIndex, revcomp_batch  # noqa: F401  (JAX's name here)
 
 
 class MatchSlots(NamedTuple):
@@ -27,6 +37,21 @@ class MatchSlots(NamedTuple):
     rid1: torch.Tensor    # int32 [B, S]
     rid2: torch.Tensor    # int32 [B, S]
     in_u: torch.Tensor    # bool [B, S]: slot belongs to the unique table
+
+
+class BatchCounts(NamedTuple):
+    """One batch's counts on the device.  The overflow counts are None
+    where the engine cannot overflow (gather), and the case fields None on
+    a grid rank that only probes."""
+
+    cnts_u: torch.Tensor    # int32 [G]
+    cnts_d: torch.Tensor    # int32 [G]
+    nundet: torch.Tensor    # int32 []
+    nconf: torch.Tensor     # int32 []
+    overflow_slots: torch.Tensor   # int32 []
+    overflow_hits: torch.Tensor    # int32 []
+    pair_lo: torch.Tensor   # int32 [B] assigned pair (sc mode) or -1
+    pair_hi: torch.Tensor   # int32 [B]
 
 
 class CaseResult(NamedTuple):
@@ -123,3 +148,52 @@ def case_analysis(ms: MatchSlots, lengths: torch.Tensor, num_genome_slots: int,
     return CaseResult(cnts_u=cnts_u, cnts_d=cnts_d, assigned=assigned,
                       dslot=dslot, sslots=slots, nundet=nundet, nconf=nconf,
                       pair_lo=pair_lo, pair_hi=pair_hi)
+
+
+def collect_matches(didx_u: DeviceIndex, didx_d: DeviceIndex,
+                    codes: torch.Tensor, lengths: torch.Tensor,
+                    u_base: int = 0, d_base: int | None = None) -> MatchSlots:
+    """Probe both tables on both strands.  Global entry ids: unique entries
+    map to [u_base, u_base + Eu), doubly to [d_base, d_base + Ed), Eu and
+    Ed the tables' device lengths; d_base defaults to u_base + Eu.  S = 4 *
+    max(Lp - h + 1, 1) columns: [unique fwd | unique rc | doubly fwd |
+    doubly rc]."""
+    return MatchSlots(*gather_probe(didx_u, didx_d, codes, lengths, u_base,
+                                    d_base))
+
+
+def rcounts_from_case(case: CaseResult, lo: int, size: int) -> torch.Tensor:
+    """int32 [size]: rcount[e] = #assigned reads whose distinct match set
+    holds global entry id lo + e."""
+    rslots = torch.where(case.dslot & case.assigned[:, None], case.sslots, BIG)
+    flat = rslots.reshape(-1).to(torch.int64)
+    tgt = torch.where((flat >= lo) & (flat < lo + size), flat - lo, size)
+    out = torch.zeros(size + 1, dtype=torch.int32, device=flat.device)
+    return out.index_add_(0, tgt, torch.ones_like(tgt, dtype=torch.int32))[:size]
+
+
+def add_case_rcounts(rcount: torch.Tensor, case: CaseResult) -> None:
+    """rcount[e] += 1 for every distinct slot e of every assigned read of
+    ``case`` (``rcounts_from_case`` over the whole id range, in place);
+    rcount's last element is a dump."""
+    dump = rcount.shape[0] - 1
+    tgt = torch.where(case.dslot & case.assigned[:, None], case.sslots,
+                      dump).reshape(-1).to(torch.int64)
+    rcount.index_add_(0, tgt, torch.ones_like(tgt, dtype=torch.int32))
+
+
+def classify_batch(didx_u: DeviceIndex, didx_d: DeviceIndex,
+                   codes: torch.Tensor, lengths: torch.Tensor,
+                   num_genome_slots: int, rcount: torch.Tensor | None = None,
+                   sc_mode: bool = False) -> BatchCounts:
+    """Single-device gather classification of one batch, with no host sync
+    on a CUDA device.  ``rcount`` (int32 [Eu + Ed + 1], Eu and Ed the
+    tables' device lengths, the last element a dump) is the pass
+    accumulator, added in place: its first Eu elements are JAX's
+    ``rcount_u``, the next Ed its ``rcount_d``."""
+    ms = collect_matches(didx_u, didx_d, codes, lengths)
+    case = case_analysis(ms, lengths, num_genome_slots, sc_mode=sc_mode)
+    if rcount is not None:
+        add_case_rcounts(rcount, case)
+    return BatchCounts(case.cnts_u, case.cnts_d, case.nundet, case.nconf,
+                       None, None, case.pair_lo, case.pair_hi)

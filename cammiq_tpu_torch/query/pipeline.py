@@ -1,7 +1,13 @@
 """Query session: classify read batches and accumulate counts on the device.
 
-Port of ``cammiq_tpu/query/pipeline.py:QuerySession`` for the single-device
-sort-join engine.  Counts accumulate in views of one int32 tensor on the
+Port of ``cammiq_tpu/query/pipeline.py:QuerySession`` with both of its
+engines: ``engine="sortjoin"`` (the bloom -> cuckoo probe join of
+``query/sortjoin.py``, the port's default) and ``engine="gather"`` (the
+per-offset probe of both FlatIndex tables on both strands,
+``query/classify.py``; the JAX session's default).  An artifact or a grid
+takes the sort join whatever ``engine`` says, as the JAX session does with
+an artifact or a mesh.  The gather engine cannot overflow, so its passes
+never re-run.  Counts accumulate in views of one int32 tensor on the
 session's device; the pass ends in ONE blocking transfer, which
 also reads the overflow counts, and nothing inside the batch loop waits for
 the device: each batch is staged in a ring of two pinned host buffers and
@@ -49,12 +55,14 @@ import torch.distributed as dist
 
 from ..config import QueryConfig
 from ..device import resolve_device
-from ..index.table import FlatIndex
+from ..index.table import FlatIndex, _empty_flat_index
 from ..io.fastq import ReadSet
 from ..parallel.dist_query import DistSortJoinSession
 from ..parallel.mesh import ProcessGrid
 from ..utils.timing import Timings, stage_timer
+from . import classify as gather
 from .merged import build_merged_index
+from .probe import to_device_index
 from .sortjoin import TorchMergedIndex, classify_batch
 
 MAXM_SEED = 16
@@ -77,24 +85,32 @@ class QueryCounts:
 
 
 class QuerySession:
-    """Holds the merged index on one device and classifies read sets."""
+    """Holds an index on one device and classifies read sets."""
 
     def __init__(self, index_u: FlatIndex, index_d: Optional[FlatIndex],
                  num_genome_slots: int, cfg: QueryConfig | None = None,
-                 device="cuda", grid: ProcessGrid | None = None):
-        """From a FlatIndex pair (``.npz``): the merged index is built on
-        the host with ``build_merged_index`` (on a grid, by every rank,
-        which then keeps its own shard)."""
+                 device="cuda", grid: ProcessGrid | None = None,
+                 engine: str = "sortjoin"):
+        """From a FlatIndex pair (``.npz``).  The sort join builds the
+        merged index on the host with ``build_merged_index`` (on a grid,
+        by every rank, which then keeps its own shard); the gather engine
+        stages both tables as ``DeviceIndex`` tensors, a never-matching
+        dummy table standing in for a missing doubly index."""
+        if engine not in ("sortjoin", "gather"):
+            raise ValueError(f"unknown query engine {engine!r}")
         if index_d is not None and index_d.h != index_u.h:
             raise ValueError("unique/doubly hash lengths must match at query time")
         dev = resolve_device(device)
-        merged = build_merged_index(index_u, index_d)
-        if grid is None:
-            self._init(TorchMergedIndex.from_merged(merged, dev),
-                       num_genome_slots, cfg)
+        if engine == "gather" and grid is None:
+            self._init_gather(index_u, index_d, num_genome_slots, cfg, dev)
         else:
-            ds = DistSortJoinSession.from_merged(grid, merged, dev)
-            self._init(ds.dm, num_genome_slots, cfg, ds)
+            merged = build_merged_index(index_u, index_d)
+            if grid is None:
+                self._init(TorchMergedIndex.from_merged(merged, dev),
+                           num_genome_slots, cfg)
+            else:
+                ds = DistSortJoinSession.from_merged(grid, merged, dev)
+                self._init(ds.dm, num_genome_slots, cfg, ds)
         if index_d is not None and index_d.num_entries:
             self._pair_src = (index_d.rid1, index_d.rid2)
 
@@ -121,18 +137,44 @@ class QuerySession:
     def _init(self, dm: TorchMergedIndex, num_genome_slots: int,
               cfg: QueryConfig | None,
               dist_session: DistSortJoinSession | None = None) -> None:
-        self.cfg = cfg or QueryConfig()
+        self._init_common("sortjoin", dm.device, num_genome_slots, cfg,
+                          dm.eu, dm.ed, dm.eu, dm.ed)
         self.dm = dm
         self.dist = dist_session
         self.grid = dist_session.grid if dist_session is not None else None
-        self.device = dm.device
-        self.num_genome_slots = num_genome_slots
-        self.num_entries_u = dm.eu
-        self.num_entries_d = dm.ed
-        self.maxm = MAXM_SEED
         # the JAX session's seed for hit_capacity_frac: denser indexes hit
         # more buckets per batch (cammiq_tpu/query/pipeline.py:159)
         self.frac = 16 if dm.NB > (1 << 25) else 32
+
+    def _init_gather(self, index_u: FlatIndex, index_d: Optional[FlatIndex],
+                     num_genome_slots: int, cfg: QueryConfig | None,
+                     dev: torch.device) -> None:
+        if index_d is None:
+            # what the JAX session builds: an empty selection at Lmax 32
+            index_d = _empty_flat_index(index_u.h, 2, True)
+        self.didx_u = to_device_index(index_u, dev)
+        self.didx_d = to_device_index(index_d, dev)
+        # doubly ids start past the unique table's DEVICE length (1 for an
+        # empty table: its dummy entry), so the rcount buffer does too
+        self._init_common("gather", dev, num_genome_slots, cfg,
+                          index_u.num_entries, index_d.num_entries,
+                          self.didx_u.length.shape[0],
+                          self.didx_d.length.shape[0])
+        self.dm = self.dist = self.grid = None
+        self.frac = 0
+
+    def _init_common(self, engine: str, dev: torch.device,
+                     num_genome_slots: int, cfg: QueryConfig | None, eu: int,
+                     ed: int, rc_d0: int, rc_ed: int) -> None:
+        self.engine = engine
+        self.cfg = cfg or QueryConfig()
+        self.device = dev
+        self.num_genome_slots = num_genome_slots
+        self.num_entries_u = eu
+        self.num_entries_d = ed
+        self._rc_d0 = rc_d0            # the doubly entries' first rcount slot
+        self._rc_size = rc_d0 + rc_ed  # rcount slots (its dump comes after)
+        self.maxm = MAXM_SEED
         self._pair_src = None       # host (rid1, rid2) of the doubly entries
         self._pair_keys_host = None  # int64 [P], sorted
         self._pair_keys = None       # the same on the device
@@ -163,21 +205,28 @@ class QuerySession:
                  # [P + 1]: the last slot is a dump for unassigned reads
                  "pairacc": P + 1}
         if with_rcounts:   # the largest copy of the pass: only when asked
-            sizes["rcount"] = self.num_entries_u + self.num_entries_d + 1
+            sizes["rcount"] = self._rc_size + 1
         # every counter a view of ONE tensor, so the pass ends in one copy
         buf = torch.zeros(sum(sizes.values()), dtype=torch.int32, device=dev)
         acc = dict(zip(sizes, torch.split(buf, list(sizes.values()))))
         upload = _Upload(dev)
         grid = self.grid
         rows = slice(None) if grid is None else grid.data_slice(bs)
-        classify = (partial(classify_batch, self.dm) if self.dist is None
-                    else self.dist.classify_batch)
+        if self.engine == "gather":
+            classify = partial(gather.classify_batch, self.didx_u, self.didx_d)
+        elif self.dist is None:
+            classify = partial(classify_batch, self.dm, maxm=self.maxm,
+                               frac=self.frac)
+        else:
+            classify = partial(self.dist.classify_batch, maxm=self.maxm,
+                               frac=self.frac)
         for batch in reads.batches(bs):
             codes, lengths = upload(batch.codes[rows], batch.lengths[rows])
-            out = classify(codes, lengths, G, self.maxm, acc.get("rcount"),
-                           sc_mode=sc_mode, frac=self.frac)
-            torch.maximum(acc["ovs"], out.overflow_slots, out=acc["ovs"])
-            torch.maximum(acc["ovh"], out.overflow_hits, out=acc["ovh"])
+            out = classify(codes, lengths, G, rcount=acc.get("rcount"),
+                           sc_mode=sc_mode)
+            if out.overflow_slots is not None:   # the gather cannot overflow
+                torch.maximum(acc["ovs"], out.overflow_slots, out=acc["ovs"])
+                torch.maximum(acc["ovh"], out.overflow_hits, out=acc["ovh"])
             if out.cnts_u is None:      # a grid rank that only probes
                 continue
             if P:
@@ -239,9 +288,9 @@ class QuerySession:
                 host = self._run_pass(reads, bs, with_rcounts, sc_mode)
                 if host is not None:
                     break
-        eu = self.num_entries_u
+        eu, ed, d0 = self.num_entries_u, self.num_entries_d, self._rc_d0
         rc = (host["rcount"][:-1].astype(np.int64) if with_rcounts
-              else np.zeros(eu + self.num_entries_d, np.int64))
+              else np.zeros(self._rc_size, np.int64))
         pair_counts = {}
         if sc_mode:
             keys = self._pair_keys_host
@@ -252,7 +301,7 @@ class QuerySession:
         return QueryCounts(
             cnts_u=host["cnts_u"].astype(np.int64),
             cnts_d=host["cnts_d"].astype(np.int64),
-            rcount_u=rc[:eu], rcount_d=rc[eu:eu + self.num_entries_d],
+            rcount_u=rc[:eu], rcount_d=rc[d0:d0 + ed],
             nundet=int(host["nundet"][0]), nconf=int(host["nconf"][0]),
             pair_counts=pair_counts, num_reads=nr,
             mean_read_len=(reads.total_len // nr) if nr else 0,

@@ -34,10 +34,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import u32
 from ..kernels.cuckoo_verify import cuckoo_verify
 from ..kernels.first_of_run import first_of_run_scan
 from ..kernels.probe_bloom import num_offsets, probe_bloom
-from .classify import BIG, MatchSlots, case_analysis
+from .classify import BIG, BatchCounts, MatchSlots, case_analysis
 from .merged import (
     BLOOM_DEVICE_LOG,
     MergedIndex,
@@ -51,10 +52,7 @@ from .merged import (
 def _as_i32(a: np.ndarray, device) -> torch.Tensor:
     """Host array (uint32 or int32, memmap allowed) -> int32 tensor on
     `device` carrying the same 32 bits."""
-    a = np.ascontiguousarray(a)
-    if a.dtype not in (np.uint32, np.int32):
-        a = a.astype(np.int32)
-    return torch.from_numpy(a.view(np.int32).copy()).to(device)
+    return torch.from_numpy(u32.bits32(a).copy()).to(device)
 
 
 @dataclasses.dataclass
@@ -201,17 +199,6 @@ def collect_matches(dm: TorchMergedIndex, codes: torch.Tensor,
                     rid2=scatter(0, pr[:, 2].contiguous()),
                     in_u=(slots < BIG) & (slots < dm.eu))
     return Matches(ms, read, gid, distinct, overflow, counts[1])
-
-
-class BatchCounts(NamedTuple):
-    cnts_u: torch.Tensor    # int32 [G]
-    cnts_d: torch.Tensor    # int32 [G]
-    nundet: torch.Tensor    # int32 []
-    nconf: torch.Tensor     # int32 []
-    overflow_slots: torch.Tensor   # int32 []
-    overflow_hits: torch.Tensor    # int32 []
-    pair_lo: torch.Tensor   # int32 [B] assigned pair (sc mode) or -1
-    pair_hi: torch.Tensor   # int32 [B]
 
 
 def classify_batch(dm: TorchMergedIndex, codes: torch.Tensor,

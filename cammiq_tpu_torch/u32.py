@@ -9,9 +9,17 @@ read the same buffers as ``uint32_t*``.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 M32 = 0xFFFFFFFF
+
+
+def bits32(a) -> np.ndarray:
+    """Host array (uint32 or int32, memmap allowed; other integers cast)
+    -> contiguous int32 carrying the same 32 bits."""
+    a = np.ascontiguousarray(a)
+    return a.view(np.int32) if a.dtype in (np.uint32, np.int32) else a.astype(np.int32)
 
 
 def widen(x: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,7 @@ C++ compiler with OpenMP.  It builds everything from this checkout, imports
 nothing of JAX or of the JAX package, and exits nonzero if any phase fails:
 
 1. header: the card's name and power limit, torch/CUDA/nvcc versions; the
-   five CUDA kernels and the native host library are compiled (build
+   six CUDA kernels and the native host library are compiled (build
    seconds printed);
 2. set-up: the config-#3-shape index (the bench generator,
    tools/benchdata.py: 1000 genomes x 300 kb, k=26 L=100 Lmax=50 h=26),
@@ -59,16 +59,27 @@ nothing of JAX or of the JAX package, and exits nonzero if any phase fails:
    unsharded session's; each query kernel at the shard's shapes against
    its plain version, timed beside its whole-index time (launch counters
    zeroed before (a)'s pass and (b)'s batches, read after);
-9. toy Type-II through the CLI: 5 genomes x 2000 bp with a 300 bp segment
+9. the gather engine at config-#3 scale (query/classify.py, kernel
+   gather_probe): QuerySession(engine="gather") on cuda from the npz pair
+   phase 2 saved, the same 16 batches in quant and sc mode (launch counters
+   zeroed before the quant pass, read after); its counts, rcounts and pair
+   counts must equal the sort-join session's (phases 5, 6); one batch in
+   each mode under sync debug mode "error" and one sync a pass; the kernel
+   against its plain version on the same CUDA tensors at one batch's
+   shapes, beside its bound; quant passes of the two engines in turns
+   (reads/s of each); DistQuerySession on a world of one NCCL rank and two
+   FlatIndex shards on the one card, their slots concatenated: every count
+   equal to the single-device gather's;
+10. toy Type-II through the CLI: 5 genomes x 2000 bp with a 300 bp segment
    planted in each pair of neighbours, indexed by `--build --device cuda`
    and by `--build --device cpu` (files must be equal), then a Type-II file
    from `--device cuda` identical to the one from `--device cpu`, with
    nonzero pair counts;
-10. the device build on cuda against the same build on the CPU device (the
+11. the device build on cuda against the same build on the CPU device (the
    plain versions of every kernel), array for array, on the bench generator
    at BUILD_CHECK_GENOMES genomes (chosen so the CPU build takes about two
    minutes); stage seconds of both are printed;
-11. build kernels against their plain versions on the config-#3 build's own
+12. build kernels against their plain versions on the config-#3 build's own
    tensors (recomputed from the corpus): first_of_run at the build's n in
    full, in index and value mode, forward and reverse; lcp_pairs and
    occ_count (unique and doubly) timed at full n (lcp_pairs also with
@@ -137,6 +148,8 @@ KERNEL_INFO = {
                   "cammiq_tpu/ops/lcp.py:90", "build"),
     "occ_count": ("cammiq_tpu_torch/csrc/occ_count.cu",
                   "cammiq_tpu/index/unique_jax.py:132", "build"),
+    "gather_probe": ("cammiq_tpu_torch/csrc/gather_probe.cu",
+                     "cammiq_tpu/query/probe.py:129", "gather"),
 }
 # the kernels each driven path must launch
 PATH_KERNELS = {
@@ -145,6 +158,9 @@ PATH_KERNELS = {
     "grid": ("first_of_run", "probe_bloom", "cuckoo_verify"),
     "shards": ("first_of_run", "probe_bloom", "cuckoo_verify"),
     "build": ("first_of_run", "lcp_pairs", "occ_count"),
+    "gather": ("gather_probe",),
+    "gather_grid": ("gather_probe",),
+    "gather_shards": ("gather_probe",),
 }
 INDEX_FIELDS = ("key_words", "length", "rid1", "rid2", "ucount1", "ucount2",
                 "table_lo", "table_hi", "table_start", "table_count")
@@ -292,6 +308,63 @@ def bound_cuckoo_verify(args, out) -> dict:
                  + 8 * M + 8)
 
 
+def bound_gather_probe(du, dd, codes, lengths, out) -> dict:
+    """Bytes: the codes and lengths, each 16-byte table row the probes walk
+    (to a probe's hit, or all max_probes rows), each entry record the
+    bucket scans read (to the match, or the whole scan; kw + 3 words), and
+    13 bytes a slot written, each row and record counted once.  Operations:
+    ~40 a slot (windows, hash), 6 a row walked, 4 kw + 6 an entry
+    scanned."""
+    import torch
+
+    from cammiq_tpu_torch import u32
+    from cammiq_tpu_torch.kernels.gather_probe import BIG
+    from cammiq_tpu_torch.query import probe as tp
+
+    slots = out[0]
+    B, Lp = codes.shape
+    O = slots.shape[1] // 4
+    dev = codes.device
+    m0, m1 = tp._prefix_masks(du.h)
+    p16s = [torch.cat([tp.pack_rolling16(x),
+                       torch.zeros(B, O + 16, dtype=torch.int64, device=dev)], 1)
+            for x in (codes, tp.revcomp_batch(codes, lengths))]
+    nbytes = codes.numel() + 4 * B + 13 * slots.numel()
+    ops = 40 * slots.numel()
+    for t, (didx, base) in enumerate(((du, 0), (dd, du.length.shape[0]))):
+        tmask = (1 << didx.table_bits) - 1
+        P, MB = didx.max_probes, didx.max_bucket
+        rows, ents = [], []
+        for s, p16 in enumerate(p16s):
+            lo = p16[:, :O] & m0
+            hi = (p16[:, 16:16 + O] & m1) if du.h > 16 else torch.zeros_like(lo)
+            slot0 = tp.hash_prefix(lo, hi) & tmask
+            bstart = torch.full_like(lo, -1)
+            bcount = torch.zeros_like(lo)
+            walked = torch.full_like(lo, P)
+            for p in range(P):
+                slot = (slot0 + p) & tmask
+                hit = ((u32.widen(didx.table_lo[slot]) == lo)
+                       & (u32.widen(didx.table_hi[slot]) == hi)
+                       & (didx.table_start[slot] >= 0) & (bstart < 0))
+                bstart = torch.where(hit, didx.table_start[slot].long(), bstart)
+                bcount = torch.where(hit, didx.table_count[slot].long(), bcount)
+                walked = torch.where(hit, p + 1, walked)
+            col = slots[:, (2 * t + s) * O:(2 * t + s + 1) * O].long()
+            scanned = torch.where(col < BIG, col - base - bstart + 1,
+                                  bcount.clamp(max=MB))
+            scanned = torch.where(bstart >= 0, scanned, 0)
+            ar = torch.arange(P, device=dev)
+            rows.append(((slot0[..., None] + ar) & tmask)[ar < walked[..., None]])
+            ar = torch.arange(MB, device=dev)
+            ents.append((bstart[..., None] + ar)[ar < scanned[..., None]])
+            ops += 6 * int(walked.sum()) + (4 * didx.kw + 6) * int(scanned.sum())
+        nbytes += 16 * torch.unique(torch.cat(rows)).numel()
+        nbytes += 4 * (didx.kw + 3) * torch.unique(torch.cat(ents)).numel()
+        del rows, ents
+    return bound(nbytes, ops)
+
+
 def bound_lcp_pairs(text, sa, lcp) -> dict:
     """Bytes: sa and out once, and the text bytes the pairs need (the union
     over ranks of each suffix's longer comparison plus the byte that
@@ -331,12 +404,14 @@ def bound_occ_doubly(lcp, lcp0, gsa, g2, ulmax, end_excl) -> dict:
 
 def kernel_counters() -> dict:
     from cammiq_tpu_torch.kernels import (cuckoo_verify, first_of_run,
-                                          lcp_pairs, occ_count, probe_bloom)
+                                          gather_probe, lcp_pairs, occ_count,
+                                          probe_bloom)
 
     return {"first_of_run": first_of_run.KERNEL,
             "probe_bloom": probe_bloom.KERNEL,
             "cuckoo_verify": cuckoo_verify.KERNEL,
-            "lcp_pairs": lcp_pairs.KERNEL, "occ_count": occ_count.KERNEL}
+            "lcp_pairs": lcp_pairs.KERNEL, "occ_count": occ_count.KERNEL,
+            "gather_probe": gather_probe.KERNEL}
 
 
 def zero_counts() -> None:
@@ -448,6 +523,76 @@ def stage_table(stages: dict, peaks: dict, other: dict | None = None) -> str:
                                    if other is not None else "")
         + (f"   peak {peaks[k] / 1e9:6.2f} GB" if k in peaks else "")
         for k, v in stages.items())
+
+
+def accumulate_gather(classify, reads, G: int) -> dict:
+    """Sum ``classify(codes, lengths)`` (host counts of one batch, the
+    ``DistQuerySession.classify`` contract) over the reads' batches; pair
+    counts from the assigned pairs."""
+    import numpy as np
+
+    acc = None
+    pairs = {}
+    for b in reads.batches(BATCH):
+        c = classify(b.codes, b.lengths)
+        got = {f: np.asarray(getattr(c, f), np.int64) for f in
+               ("cnts_u", "cnts_d", "rcount_u", "rcount_d", "nundet", "nconf")}
+        acc = got if acc is None else {f: acc[f] + got[f] for f in acc}
+        ok = c.pair_lo >= 0
+        for a, z in zip(c.pair_lo[ok].tolist(), c.pair_hi[ok].tolist()):
+            pairs[a, z] = pairs.get((a, z), 0) + 1
+    acc["nundet"], acc["nconf"] = int(acc["nundet"]), int(acc["nconf"])
+    acc["pairs"] = pairs
+    return acc
+
+
+class TwoGatherShards:
+    """Two FlatIndex shards of both tables (``shard_flat_index``) on one
+    card, probed in turn with their id bases, their slots concatenated as
+    a row's gather gives them; ``classify`` follows the
+    ``DistQuerySession.classify`` contract."""
+
+    def __init__(self, index_u, index_d, G, device):
+        from cammiq_tpu_torch.parallel import dist_query as dq
+
+        self.G, self.device = G, device
+        self.index_u, self.index_d = index_u, index_d
+        self.su, self.sd = (dq.shard_flat_index(x, 2) for x in (index_u, index_d))
+        self.shards = [
+            [dq._local_didx({k: v[m] for k, v in dq._shard_arrays(s).items()},
+                            s.h, s.kw, s.max_probes, s.max_bucket, device)
+             for s in (self.su, self.sd)] for m in range(2)]
+        self.geometry = {"e_pad": (self.su.e_pad, self.sd.e_pad),
+                         "table_rows": self.su.table_start.shape[1],
+                         "max_probes": (self.su.max_probes, self.sd.max_probes)}
+
+    def classify(self, codes, lengths):
+        import types
+
+        import numpy as np
+        import torch
+
+        from cammiq_tpu_torch.query import classify as gc
+
+        su, sd = self.su, self.sd
+        c = torch.from_numpy(codes).to(self.device).contiguous()
+        ln = torch.from_numpy(lengths).to(self.device)
+        mss = [gc.collect_matches(du, dd, c, ln, m * su.e_pad,
+                                  2 * su.e_pad + m * sd.e_pad)
+               for m, (du, dd) in enumerate(self.shards)]
+        ms = gc.MatchSlots(*(torch.cat([getattr(x, f) for x in mss], 1)
+                             for f in gc.MatchSlots._fields))
+        case = gc.case_analysis(ms, ln, self.G, sc_mode=True)
+        out = {f: getattr(case, f).cpu().numpy() for f in
+               ("cnts_u", "cnts_d", "nundet", "nconf", "pair_lo", "pair_hi")}
+        for name, s, lo, idx in (("rcount_u", su, 0, self.index_u),
+                                 ("rcount_d", sd, 2 * su.e_pad, self.index_d)):
+            part = gc.rcounts_from_case(case, lo, 2 * s.e_pad).cpu().numpy()
+            rc = np.zeros(idx.num_entries, np.int64)
+            sel = s.orig_id.reshape(-1) >= 0
+            rc[s.orig_id.reshape(-1)[sel]] = part[sel]
+            out[name] = rc
+        return types.SimpleNamespace(**out)
 
 
 class Tee(io.StringIO):
@@ -939,7 +1084,7 @@ class Smoke:
         if not same:
             raise AssertionError("sc-mode batch outputs differ kernels vs plain")
 
-    # ---- 9. toy Type-II and the build through the CLI, cuda against cpu
+    # ---- 10. toy Type-II and the build through the CLI, cuda against cpu
     def toy_type2(self):
         import numpy as np
         import torch
@@ -1018,7 +1163,7 @@ class Smoke:
         finally:
             shutil.rmtree(root, ignore_errors=True)
 
-    # ---- 10. the device build against the CPU build at a reduced size
+    # ---- 11. the device build against the CPU build at a reduced size
     def build_vs_cpu(self):
         import numpy as np
 
@@ -1064,7 +1209,7 @@ class Smoke:
             f"entries), ulm counts and meta files identical; stages (cuda | cpu):\n"
             + stage_table(stages[DEV], {}, stages["cpu"]))
 
-    # ---- 11. build kernels vs plain versions on the build's tensors
+    # ---- 12. build kernels vs plain versions on the build's tensors
     def build_kernels(self):
         import numpy as np
         import torch
@@ -1337,6 +1482,139 @@ class Smoke:
                 f"{full.get('device_ms')}), second of two shards {shard['ms']:.4f} ms "
                 f"(device only {shard['device_ms']})")
 
+    # ---- 9. the gather engine: session, kernel, distributed twin
+    def gather_engine(self, mdir, sess, reads):
+        import numpy as np
+        import torch
+        import torch.distributed as dist
+
+        from cammiq_tpu_torch.config import QueryConfig
+        from cammiq_tpu_torch.index.table import load_flat_index_pair
+        from cammiq_tpu_torch.kernels import gather_probe as kgp
+        from cammiq_tpu_torch.parallel.dist_query import DistQuerySession
+        from cammiq_tpu_torch.parallel.mesh import ProcessGrid
+        from cammiq_tpu_torch.query import classify as gc
+        from cammiq_tpu_torch.query.pipeline import QuerySession
+
+        G = self.results["genomes"] + 1
+        out = self.results["gather"] = {}
+        cdir = os.path.dirname(mdir)
+        t = time.time()
+        index_u, index_d = load_flat_index_pair(os.path.join(cdir, "index_u.npz"),
+                                                os.path.join(cdir, "index_d.npz"))
+        gsess = QuerySession(index_u, index_d, G,
+                             QueryConfig(h=index_u.h, erate=0.01, batch_size=BATCH),
+                             device=DEV, engine="gather")
+        torch.cuda.synchronize()
+        out["session_start_s"] = time.time() - t
+        du, dd = gsess.didx_u, gsess.didx_d
+        out["tables"] = {n: {"entries": x.num_entries, "table_rows": 1 << x.table_bits,
+                             "max_probes": x.max_probes, "max_bucket": x.max_bucket,
+                             "kw": x.kw} for n, x in (("unique", du), ("doubly", dd))}
+        log(f"gather session start {out['session_start_s']:.1f} s (npz load "
+            f"included): tables {out['tables']}")
+        zero_counts()
+        counts = gsess.run(reads)
+        out["launches"] = read_counts("gather", self.results)
+        sc = gsess.run(reads, sc_mode=True)
+        self.gather_counts = counts
+        for c, want, mode in ((counts, self.quant_counts, "quant"),
+                              (sc, self.sc_counts, "sc")):
+            for f in ("cnts_u", "cnts_d") + (("rcount_u", "rcount_d") if mode == "quant" else ()):
+                if not np.array_equal(getattr(c, f), getattr(want, f)):
+                    raise AssertionError(f"gather {mode} pass differs from the sort join in {f}")
+            if (c.nundet, c.nconf, c.pair_counts) != (want.nundet, want.nconf,
+                                                     want.pair_counts):
+                raise AssertionError(f"gather {mode} pass differs from the sort join")
+        log(f"gather quant and sc passes: counts, rcounts and pair counts equal "
+            f"the sort join's; launches {out['launches']}")
+        # a batch in each mode under sync debug mode "error", a pass's syncs
+        codes = torch.from_numpy(reads.codes[:BATCH]).to(sess.device).contiguous()
+        lengths = torch.from_numpy(reads.lengths[:BATCH]).to(sess.device)
+        rc = torch.zeros(gsess._rc_size + 1, dtype=torch.int32, device=sess.device)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for scm in (False, True):
+                gc.classify_batch(du, dd, codes, lengths, G, None if scm else rc,
+                                  sc_mode=scm)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        out["syncs"] = {"batch": 0, "pass": {
+            m: count_syncs(lambda: gsess.run(reads, sc_mode=m == "sc"))
+            for m in ("quant", "sc")}}
+        if out["syncs"]["pass"] != {"quant": 1, "sc": 1}:
+            raise AssertionError(f"gather pass syncs {out['syncs']}")
+        # the kernel against its plain version on one batch's tensors
+        args = (du, dd, codes, lengths)
+        got = kgp.gather_probe(*args)
+        hits = int((got[0] < kgp.BIG).sum())
+        log(f"gather batch: {hits} matched slots of {got[0].numel()} "
+            f"({BATCH} x {got[0].shape[1]})")
+        self.compare("gather_probe", kgp.gather_probe, kgp.gather_probe_plain,
+                     args, bound_gather_probe(*args, got), plain_reps=(3, 1, 1))
+        # quant passes of the two engines in turns
+        runs = {"sortjoin": [], "gather": []}
+        for who in ("sortjoin", "gather", "gather", "sortjoin", "sortjoin", "gather"):
+            torch.cuda.synchronize()
+            t = time.time()
+            (sess if who == "sortjoin" else gsess).run(reads)
+            runs[who].append(time.time() - t)
+        out["pass_s"] = runs
+        out["reads_per_s"] = {w: reads.num_reads / statistics.median(r)
+                              for w, r in runs.items()}
+        out["profile"] = profile_pass(lambda: gsess.run(reads))
+        out["profile"]["lines"] = out["profile"]["lines"][:14]
+        pr = out["profile"]
+        log(f"quant passes in turns: sort join {['%.4f' % r for r in runs['sortjoin']]}"
+            f" s -> {out['reads_per_s']['sortjoin']:.1f} reads/s; gather "
+            f"{['%.4f' % r for r in runs['gather']]} s -> "
+            f"{out['reads_per_s']['gather']:.1f} reads/s; gather pass under the "
+            f"profiler: wall {pr['wall_ms']:.3f} ms, device busy {pr['device_ms']:.3f} "
+            f"ms, {pr['device_ops']} device operations; top:\n"
+            + "\n".join(pr["lines"][:8]))
+        # the distributed twin: a world of one NCCL rank, then two shards
+        store = dist.TCPStore("127.0.0.1", free_port(), 1, True,
+                              timeout=datetime.timedelta(seconds=120))
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=300))
+        try:
+            t = time.time()
+            ds = DistQuerySession(ProcessGrid(1, 1, sess.device), index_u,
+                                  index_d, G, sc_mode=True, device=sess.device)
+            out["grid_session_start_s"] = time.time() - t
+            zero_counts()
+            grid_counts = accumulate_gather(ds.classify, reads, G)
+            out["grid_launches"] = read_counts("gather_grid", self.results)
+        finally:
+            dist.destroy_process_group()
+        self.check_gather(grid_counts, counts, sc, "1 x 1 NCCL grid")
+        del ds
+        t = time.time()
+        twin = TwoGatherShards(index_u, index_d, G, sess.device)
+        out["two_shard_build_s"] = time.time() - t
+        out["two_shard_geometry"] = twin.geometry
+        zero_counts()
+        shard_counts = accumulate_gather(twin.classify, reads, G)
+        out["two_shard_launches"] = read_counts("gather_shards", self.results)
+        self.check_gather(shard_counts, counts, sc, "two shards")
+        log(f"gather twin: 1 x 1 NCCL grid (start {out['grid_session_start_s']:.1f} "
+            f"s, launches {out['grid_launches']}) and two shards (built in "
+            f"{out['two_shard_build_s']:.1f} s, {twin.geometry}, launches "
+            f"{out['two_shard_launches']}): counts, rcounts and pairs equal the "
+            f"single-device gather's")
+
+    @staticmethod
+    def check_gather(got: dict, counts, sc, what: str) -> None:
+        import numpy as np
+
+        for f in ("cnts_u", "cnts_d", "rcount_u", "rcount_d"):
+            if not np.array_equal(got[f], getattr(counts, f)):
+                raise AssertionError(f"gather {what} differs in {f}")
+        if (got["nundet"], got["nconf"], got["pairs"]) != (
+                counts.nundet, counts.nconf, sc.pair_counts):
+            raise AssertionError(f"gather {what} differs in nundet/nconf/pairs")
+
     def report(self, device_name: str, smi: str):
         import torch
 
@@ -1402,6 +1680,8 @@ def main() -> int:
         s.phase("profile of one pass", s.profile, sess, reads)
         if "Type-II at config-#3 scale" not in s.failed:
             s.phase("distributed query: NCCL grid and two shards", s.grid, art,
+                    sess, reads)
+            s.phase("gather engine at config-#3 scale", s.gather_engine, mdir,
                     sess, reads)
         del art, sess, art_sess
         torch.cuda.empty_cache()

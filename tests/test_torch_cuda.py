@@ -19,19 +19,24 @@ from cammiq_tpu_torch.index import unique as uq
 from cammiq_tpu_torch.index.builder import build_index
 from cammiq_tpu_torch.kernels import cuckoo_verify as kcv
 from cammiq_tpu_torch.kernels import first_of_run as kfr
+from cammiq_tpu_torch.kernels import gather_probe as kgp
 from cammiq_tpu_torch.kernels import lcp_pairs as klcp
 from cammiq_tpu_torch.kernels import occ_count as kocc
 from cammiq_tpu_torch.kernels import probe_bloom as kpb
 from cammiq_tpu_torch.io.fastq import ReadSet
 from cammiq_tpu_torch.ops.sa import suffix_array
 from cammiq_tpu_torch.parallel import dist_query as tdq
+from cammiq_tpu_torch.index.table import _empty_flat_index
+from cammiq_tpu_torch.query import classify as tgc
 from cammiq_tpu_torch.query.classify import MatchSlots, case_analysis
 from cammiq_tpu_torch.query.merged import build_merged_index
 from cammiq_tpu_torch.query.pipeline import QuerySession
+from cammiq_tpu_torch.query.probe import to_device_index
 import cammiq_tpu_torch.query.sortjoin as tsj
 from cammiq_tpu_torch.query.sortjoin import (TorchMergedIndex, classify_batch,
                                              collect_matches)
-from torch_fixture import dist_fixture, large_bucket_index, pair_corpus
+from torch_fixture import (dist_fixture, gather_tables, large_bucket_index,
+                           pair_corpus, planted_reads)
 
 pytestmark = pytest.mark.cuda
 
@@ -563,3 +568,199 @@ def test_wrappers_reject_bad_inputs(cuda_device):
     i32 = torch.zeros(8, dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError):
         kocc.occ_count_unique(i32, i32, i32)          # lcp needs n + 1
+
+
+# ---- the gather engine (kernels/gather_probe.py)
+
+def _gather_both(iu, idd, codes, lengths, dev, **bases):
+    """gather_probe on ``dev`` (one launch) and its plain version on the
+    same tensors."""
+    du, dd = to_device_index(iu, dev), to_device_index(idd, dev)
+    c, ln = torch.from_numpy(codes).to(dev), torch.from_numpy(lengths).to(dev)
+    before = kgp.KERNEL.launches
+    got = kgp.gather_probe(du, dd, c, ln, **bases)
+    assert kgp.KERNEL.launches == before + 1
+    return got, kgp.gather_probe_plain(du, dd, c, ln, **bases)
+
+
+def _assert_gather_equal(got, want, hits=True):
+    for name, g, w in zip(("slots", "rid1", "rid2", "in_u"), got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+    assert (int((got[0] < kgp.BIG).sum()) > 0) == hits
+
+
+@pytest.mark.parametrize("h,Lp,B", [(12, 64, 512), (16, 100, 300),
+                                    (17, 100, 300), (20, 100, 512),
+                                    (26, 100, 8192), (26, 20, 1000),
+                                    (20, 12000, 3)])
+def test_gather_probe_kernel_matches_plain(cuda_device, h, Lp, B):
+    """Random tables, reads with -1 codes on both strands, empty reads and
+    reads shorter than h; h at the one-word edge (16, 17), Lp < h (one
+    offset), many tiles (B = 8192), and one read a tile above 48 KB of
+    shared memory (Lp = 12000)."""
+    iu, idd, keys = gather_tables(h, h)
+    codes, lengths = planted_reads(h + Lp, keys, B, Lp)
+    _assert_gather_equal(*_gather_both(iu, idd, codes, lengths, cuda_device),
+                         hits=Lp >= h)
+
+
+@pytest.mark.parametrize("probes", ["tight_table", "65"])
+def test_gather_probe_kernel_walks_probes(cuda_device, probes):
+    """A hash table packed tight (max_probes > 1), and 65 probes over a
+    table that needs fewer: each thread takes the first matching row and
+    walks past empty ones, as JAX does."""
+    import dataclasses
+
+    iu, idd, keys = gather_tables(5, 20, load_factor=4.0)
+    assert iu.max_probes > 1
+    if probes == "65":
+        iu, idd = (dataclasses.replace(x, max_probes=65) for x in (iu, idd))
+    codes, lengths = planted_reads(6, keys, 2048, 100)
+    _assert_gather_equal(*_gather_both(iu, idd, codes, lengths, cuda_device))
+
+
+@pytest.mark.parametrize("empty", ["unique", "doubly"])
+def test_gather_probe_kernel_empty_table(cuda_device, empty):
+    """An empty table's dummy entry never matches; the doubly ids start past
+    the unique table's device length."""
+    iu, idd, keys = gather_tables(7, 20)
+    if empty == "unique":
+        iu = _empty_flat_index(20, iu.kw, False)
+    else:
+        idd = _empty_flat_index(20, idd.kw, True)
+    codes, lengths = planted_reads(8, keys, 1024, 100)
+    _assert_gather_equal(*_gather_both(iu, idd, codes, lengths, cuda_device))
+
+
+def test_gather_probe_kernel_bases(cuda_device):
+    iu, idd, keys = gather_tables(9, 26)
+    codes, lengths = planted_reads(10, keys, 1024, 100)
+    _assert_gather_equal(*_gather_both(iu, idd, codes, lengths, cuda_device,
+                                       u_base=1000, d_base=77_777))
+
+
+def test_gather_probe_rejects_2e31_slots(cuda_device):
+    """B * 4 * O >= 2^31 raises before any launch."""
+    iu, idd, _ = gather_tables(11, 12)
+    du, dd = to_device_index(iu, cuda_device), to_device_index(idd, cuda_device)
+    Lp = 4000
+    B = 2**31 // (4 * (Lp - 12 + 1)) + 1
+    codes = torch.zeros((B, Lp), dtype=torch.int8, device=cuda_device)
+    lengths = torch.zeros(B, dtype=torch.int32, device=cuda_device)
+    before = kgp.KERNEL.launches
+    with pytest.raises(ValueError, match="int32 slots"):
+        kgp.gather_probe(du, dd, codes, lengths)
+    with pytest.raises(TypeError):
+        kgp.gather_probe(du, dd, codes[:4].to(torch.int32), lengths[:4])
+    assert kgp.KERNEL.launches == before
+
+
+@pytest.mark.parametrize("sc_mode", [False, True])
+def test_gather_classify_batch_makes_no_host_sync(cuda_device, dist_index, sc_mode):
+    """A gather batch through the kernel under sync debug mode "error";
+    its counts and rcount equal the plain path's."""
+    art, _, rs, G = dist_index
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        du = to_device_index(art.unique_index, dev)
+        dd = to_device_index(art.doubly_index, dev)
+        codes = torch.from_numpy(rs.codes).to(dev)
+        lengths = torch.from_numpy(rs.lengths).to(dev)
+        rc = torch.zeros(du.length.shape[0] + dd.length.shape[0] + 1,
+                         dtype=torch.int32, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            bc = tgc.classify_batch(du, dd, codes, lengths, G, rc, sc_mode=sc_mode)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        outs.append([x.cpu() for x in (bc.cnts_u, bc.cnts_d, bc.nundet, bc.nconf,
+                                       bc.pair_lo, bc.pair_hi, rc)])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("sc_mode", [False, True])
+def test_gather_session_cuda_matches_sortjoin(cuda_device, dist_index, sc_mode):
+    """QuerySession(engine="gather") on the card equals the same session on
+    the CPU and the sort-join session on the card (the fixture's reads
+    hold no N), and a warm pass syncs once."""
+    art, _, rs, G = dist_index
+    cfg = QueryConfig(h=art.unique_index.h, batch_size=64)
+    sess = QuerySession(art.unique_index, art.doubly_index, G, cfg,
+                        device=cuda_device, engine="gather")
+    got = sess.run(rs, sc_mode=sc_mode)
+    for want in (QuerySession(art.unique_index, art.doubly_index, G, cfg,
+                              device=d, engine=e).run(rs, sc_mode=sc_mode)
+                 for d, e in (("cpu", "gather"), (cuda_device, "sortjoin"))):
+        _assert_query_counts_equal(got, want)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            sess.run(rs, sc_mode=sc_mode)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert sum("called a synchronizing CUDA operation" in str(w.message)
+               for w in caught) == 1
+
+
+def _single_gather(art, rs, G, dev):
+    du = to_device_index(art.unique_index, dev)
+    dd = to_device_index(art.doubly_index, dev)
+    Eu = du.length.shape[0]
+    rc = torch.zeros(Eu + dd.length.shape[0] + 1, dtype=torch.int32, device=dev)
+    bc = tgc.classify_batch(du, dd, torch.from_numpy(rs.codes).to(dev),
+                            torch.from_numpy(rs.lengths).to(dev), G, rc,
+                            sc_mode=True)
+    rc = rc.cpu().numpy()
+    return bc, rc[:art.unique_index.num_entries], rc[Eu:Eu + art.doubly_index.num_entries]
+
+
+def test_dist_gather_nccl_matches_single(cuda_device, dist_index, nccl_grid):
+    """DistQuerySession on a world of one NCCL rank equals the single
+    gather batch, rcount and pairs included."""
+    art, _, rs, G = dist_index
+    bc, rcu, rcd = _single_gather(art, rs, G, cuda_device)
+    got = tdq.DistQuerySession(nccl_grid, art.unique_index, art.doubly_index, G,
+                               sc_mode=True, device=cuda_device).classify(
+        rs.codes, rs.lengths)
+    for f in ("cnts_u", "cnts_d", "pair_lo", "pair_hi"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(bc, f).cpu().numpy(),
+                                      err_msg=f)
+    assert (got.nundet, got.nconf) == (int(bc.nundet), int(bc.nconf))
+    np.testing.assert_array_equal(got.rcount_u, rcu)
+    np.testing.assert_array_equal(got.rcount_d, rcd)
+    assert rcu.sum() > 0
+
+
+def test_dist_gather_two_shards_on_one_card(cuda_device, dist_index):
+    """Two FlatIndex shards probed through the kernel with their id bases,
+    their slots concatenated as a row's gather gives them: the case
+    analysis and the rcounts mapped back through orig_id equal the
+    unsharded batch's."""
+    art, _, rs, G = dist_index
+    bc, rcu, rcd = _single_gather(art, rs, G, cuda_device)
+    su, sd = (tdq.shard_flat_index(x, 2) for x in (art.unique_index, art.doubly_index))
+    codes = torch.from_numpy(rs.codes).to(cuda_device)
+    lengths = torch.from_numpy(rs.lengths).to(cuda_device)
+    mss = []
+    for m in range(2):
+        du, dd = (tdq._local_didx({k: v[m] for k, v in tdq._shard_arrays(s).items()},
+                                  s.h, s.kw, s.max_probes, s.max_bucket, cuda_device)
+                  for s in (su, sd))
+        mss.append(tgc.collect_matches(du, dd, codes, lengths, m * su.e_pad,
+                                       2 * su.e_pad + m * sd.e_pad))
+    ms = MatchSlots(*(torch.cat([getattr(x, f) for x in mss], 1)
+                      for f in MatchSlots._fields))
+    case = case_analysis(ms, lengths, G, sc_mode=True)
+    for f in ("cnts_u", "cnts_d", "nundet", "nconf", "pair_lo", "pair_hi"):
+        assert torch.equal(getattr(case, f), getattr(bc, f)), f
+    for s, lo, want in ((su, 0, rcu), (sd, 2 * su.e_pad, rcd)):
+        part = tgc.rcounts_from_case(case, lo, 2 * s.e_pad).cpu().numpy()
+        got = np.zeros_like(want)
+        sel = s.orig_id.reshape(-1) >= 0
+        got[s.orig_id.reshape(-1)[sel]] = part[sel]
+        np.testing.assert_array_equal(got, want)

@@ -98,6 +98,15 @@ def _worker(spec_path: str) -> None:
                 tsj.HIT_FLOOR, tsj.LIST_SLACK = floor, slack
             np.savez(out / f"{sc['name']}.rank{rank}.npz",
                      **_counts_record(c, sess), **sess.dist.geometry)
+        if spec.get("gather"):
+            with np.load(spec["gather"]) as z:
+                codes, lengths = z["codes"], z["lengths"]
+            for sc in (False, True):
+                gc = tdq.DistQuerySession(grid, index_u, index_d, G,
+                                          sc_mode=sc, device="cpu")
+                got = gc.classify(codes, lengths)
+                np.savez(out / f"gather_{'sc' if sc else 'quant'}.rank{rank}.npz",
+                         **got._asdict())
     for argv in spec["cli"]:
         cli.main(argv)          # every rank, the inactive ones too
     torch.distributed.destroy_process_group()
@@ -315,6 +324,26 @@ def test_shard_arrays_match_jax(toy, tmp_path, monkeypatch, source, mp):
         assert empty > 0
 
 
+SHARDED_FIELDS = ("h", "kw", "mp", "e_pad", "max_probes", "max_bucket",
+                  "key_words", "length", "rid1", "rid2", "ucount1", "ucount2",
+                  "table_lo", "table_hi", "table_start", "table_count",
+                  "orig_id")
+
+
+@pytest.mark.parametrize("mp", [2, 4])
+@pytest.mark.parametrize("kind", ["unique", "doubly"])
+def test_shard_flat_index_matches_jax(toy, kind, mp):
+    from cammiq_tpu.parallel import dist_query as jdq
+
+    idx = load_flat_index_pair(toy["iu"], toy["idd"])[kind == "doubly"]
+    got, want = tdq.shard_flat_index(idx, mp), jdq.shard_flat_index(idx, mp)
+    for f in SHARDED_FIELDS:
+        g, w = getattr(got, f), getattr(want, f)
+        np.testing.assert_array_equal(g, w, err_msg=f)
+        assert np.asarray(g).dtype == np.asarray(w).dtype, f
+    assert (got.orig_id >= 0).sum() == idx.num_entries
+
+
 def test_host_shard_of_files_matches_jax():
     from cammiq_tpu.parallel.multihost import host_shard_of_files as jshard
 
@@ -344,7 +373,19 @@ def _cli_query(toy, mode, out, *flags):
 
 
 @pytest.fixture(scope="module")
-def grid_runs(toy, tmp_path_factory):
+def gather_batch(toy, reads, tmp_path_factory):
+    """One batch of 512 reads for the gather engine's twin: the first 492
+    of the toy and its 20 hairpin reads (x + revcomp(x)), saved for the
+    workers."""
+    codes = np.concatenate([reads.codes[:492], reads.codes[-20:]])
+    lengths = np.concatenate([reads.lengths[:492], reads.lengths[-20:]])
+    path = str(tmp_path_factory.mktemp("gather_batch") / "batch.npz")
+    np.savez(path, codes=codes, lengths=lengths)
+    return dict(path=path, codes=codes, lengths=lengths)
+
+
+@pytest.fixture(scope="module")
+def grid_runs(toy, gather_batch, tmp_path_factory):
     """Every layout's world, launched together once (its session runs and,
     for two layouts, the CLI runs): layout -> (directory, rank logs,
     world size)."""
@@ -360,7 +401,7 @@ def grid_runs(toy, tmp_path_factory):
         spec = dict(out=str(out), data=dp, model=mp, toy=toy,
                     sessions=SESSIONS + [dict(name="widen", source="npz",
                                               sc=False, widen=True)],
-                    cli=argvs)
+                    cli=argvs, gather=gather_batch["path"])
         with open(out / "spec.json", "w") as f:
             json.dump(spec, f)
         worlds[dp, mp] = (world, [sys.executable, str(Path(__file__).resolve()),
@@ -436,6 +477,70 @@ def test_grid_shard_geometry(grid_runs, toy, layout):
         assert (int(rec["e_pad"]), int(rec["nb_pad"]), int(rec["bloom_log"]),
                 int(rec["ck_log"])) == (e_pad, nb_pad, bloom_log, ck_log)
         assert rec["entries"].tolist() == [h - l for l, h in zip(e_lo, e_hi)]
+
+
+@pytest.fixture(scope="module")
+def gather_want(toy, gather_batch):
+    """The batch's counts from the port's single-device gather (CPU) and,
+    per layout, from the JAX package's DistQuerySession in sc mode (its
+    counts and rcounts are those of quant mode) on the conftest's CPU
+    devices."""
+    from cammiq_tpu.index.table import load_flat_index_pair as jload
+    from cammiq_tpu.parallel.dist_query import DistQuerySession as JDist
+    from cammiq_tpu.parallel.mesh import make_mesh
+    from cammiq_tpu_torch.query import classify as tc
+    from cammiq_tpu_torch.query.probe import to_device_index
+
+    index_u, index_d = load_flat_index_pair(toy["iu"], toy["idd"])
+    du, dd = to_device_index(index_u, "cpu"), to_device_index(index_d, "cpu")
+    codes = torch.from_numpy(gather_batch["codes"])
+    lengths = torch.from_numpy(gather_batch["lengths"])
+    Eu, Ed = du.length.shape[0], dd.length.shape[0]
+    rc = torch.zeros(Eu + Ed + 1, dtype=torch.int32)
+    single = tc.classify_batch(du, dd, codes, lengths, G, rc, sc_mode=True)
+    single = dict(cnts_u=single.cnts_u.numpy(), cnts_d=single.cnts_d.numpy(),
+                  nundet=int(single.nundet), nconf=int(single.nconf),
+                  pair_lo=single.pair_lo.numpy(), pair_hi=single.pair_hi.numpy(),
+                  rcount_u=rc[:Eu].numpy(), rcount_d=rc[Eu:Eu + Ed].numpy())
+    ju, jd = jload(toy["iu"], toy["idd"])
+    cache = {}
+
+    def jax_layout(layout):
+        if layout not in cache:
+            cache[layout] = JDist(make_mesh(*layout), ju, jd, G, sc_mode=True
+                                  ).classify(gather_batch["codes"],
+                                             gather_batch["lengths"])._asdict()
+        return cache[layout]
+
+    return single, jax_layout
+
+
+GATHER_FIELDS = ("cnts_u", "cnts_d", "rcount_u", "rcount_d", "nundet", "nconf")
+
+
+@pytest.mark.parametrize("sc", [False, True], ids=["quant", "sc"])
+@pytest.mark.parametrize("layout", LAYOUTS, ids=lambda l: f"{l[0]}x{l[1]}")
+def test_dist_gather_session_matches_jax(grid_runs, gather_want, layout, sc):
+    """DistQuerySession.classify gives every rank of the grid the counts,
+    rcounts and assigned pairs of the JAX package's DistQuerySession on the
+    same layout and of the port's single-device gather."""
+    out, _, _ = grid_runs[layout]
+    single, jax_layout = gather_want
+    want = jax_layout(layout)
+    recs = _rank_records(out, f"gather_{'sc' if sc else 'quant'}",
+                         range(layout[0] * layout[1]))
+    for rec in recs:
+        for f in GATHER_FIELDS:
+            np.testing.assert_array_equal(rec[f], want[f], err_msg=f)
+            np.testing.assert_array_equal(rec[f], single[f], err_msg=f)
+        for f in ("pair_lo", "pair_hi"):
+            if sc:
+                np.testing.assert_array_equal(rec[f], want[f], err_msg=f)
+                np.testing.assert_array_equal(rec[f], single[f], err_msg=f)
+            else:
+                assert (rec[f] == -1).all()
+    assert want["cnts_u"].sum() > 0 and want["rcount_d"].sum() > 0
+    assert (single["pair_lo"] >= 0).sum() > 0
 
 
 # ---- CLI runs

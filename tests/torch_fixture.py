@@ -49,7 +49,7 @@ def _pack(codes, kw):
     return w
 
 
-def flat_table(keys, is_doubly, h, kw):
+def flat_table(keys, is_doubly, h, kw, load_factor=0.5):
     n = len(keys)
     rid1 = np.arange(1, n + 1, dtype=np.int64)
     rid2 = np.arange(2, n + 2, dtype=np.int64) if is_doubly else np.zeros(n, np.int64)
@@ -57,7 +57,46 @@ def flat_table(keys, is_doubly, h, kw):
     return build_flat_index_from_entries(
         np.asarray([_pack(k, kw) for k in keys], np.uint32),
         np.asarray([len(k) for k in keys], np.int64),
-        rid1, uc, rid2, uc, h, is_doubly)
+        rid1, uc, rid2, uc, h, is_doubly, load_factor)
+
+
+def gather_tables(seed, h, n_u=400, n_d=60, load_factor=0.5):
+    """(unique FlatIndex, doubly FlatIndex, keys) of random keys h to h + 13
+    bases long, a dozen of the unique ones sharing one h-prefix (a bucket
+    of several entries).  A load factor above 1 packs the hash table
+    tight, so probes walk more than one slot."""
+    rng = np.random.default_rng(seed)
+    kw = max(2, (h + 13 + 15) // 16)
+
+    def keys(n):
+        return [list(rng.integers(0, 4, int(rng.integers(h, h + 14))))
+                for _ in range(n)]
+
+    P = list(rng.integers(0, 4, h))
+    u = [P + list(t) for t in rng.permutation(64)[:12, None] // [16, 4, 1] % 4]
+    u += keys(n_u)
+    d = keys(n_d)
+    return (flat_table(u, False, h, kw, load_factor),
+            flat_table(d, True, h, kw, load_factor), u + d)
+
+
+def planted_reads(seed, keys, B, Lp, minus1=0.03):
+    """int8 codes [B, Lp] and int32 lengths: random reads (a tenth empty or
+    shorter than 16) with one key each planted, a third of them reverse
+    complemented; ``minus1`` of all codes -1, padding included."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, (B, Lp)).astype(np.int8)
+    lengths = rng.integers(Lp // 2, Lp + 1, B)
+    lengths[rng.random(B) < 0.1] = rng.integers(0, 16)
+    for b in range(B):
+        k = keys[int(rng.integers(len(keys)))]
+        if b % 3 == 0:
+            k = rc(k)
+        if len(k) <= lengths[b]:
+            off = int(rng.integers(0, lengths[b] - len(k) + 1))
+            codes[b, off:off + len(k)] = k
+    codes[rng.random(codes.shape) < minus1] = -1
+    return codes, lengths.astype(np.int32)
 
 
 def large_bucket_index(seed=77):

@@ -1,7 +1,7 @@
 """Build and bind the hand-written CUDA kernels (``cammiq_tpu_torch/csrc``).
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes`` (the same
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``
+(all at once), and the objects linked into one shared library with a plain C interface, loaded with ``ctypes`` (the same
 pattern ``cammiq_tpu/native.py`` uses for ``native/``).  The build runs at
 the first kernel launch, never at import, into ``cammiq_tpu_torch/_build/``
 (git-ignored).  The library name carries a hash of the sources and flags,
@@ -29,7 +29,7 @@ CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _lib = None
@@ -58,21 +58,42 @@ def library_path() -> Path:
     return BUILD_DIR / f"libcammiq_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(procs: list) -> str:
+    """Wait for every (command, Popen), then raise on the first failure."""
+    done = [(cmd, p, *p.communicate()) for cmd, p in procs]
+    for cmd, p, stdout, stderr in done:
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed with code {p.returncode}: "
+                               f"{' '.join(cmd)}\n{stdout}\n{stderr}")
+    return "".join(stdout + stderr for _, _, stdout, stderr in done)
+
+
 def build() -> Path:
     """Compile the kernel library unless an up-to-date one exists; return
-    its path.  The compiler's resource report goes to ``<library>.log``."""
+    its path.  One nvcc per source, all started together, then one link.
+    The compiler's resource report goes to ``<library>.log``."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs, procs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True)))
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in sorted(CSRC.glob("*.cu")))]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with code {res.returncode}:\n{res.stdout}\n{res.stderr}")
-    out.with_suffix(".log").write_text(res.stdout + res.stderr)
+    try:
+        log = _run(procs)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        log += _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True))])
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)
     return out
 

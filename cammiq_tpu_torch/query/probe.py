@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from .. import u32
-from ..index.table import FlatIndex
+from ..index.table import FlatIndex, hash_prefix as hash_prefix_np
 
 _HASH_C1 = 0x85EBCA6B
 _HASH_C2 = 0xC2B2AE35
@@ -75,12 +75,42 @@ def record_width(kw: int) -> int:
     return (kw + 3 + 3) // 4 * 4
 
 
+def check_probe_runs(table_lo, table_hi, table_start) -> None:
+    """Raise ValueError unless every occupied row s of the hash table, of
+    hash h = hash_prefix(lo, hi) & (T - 1), has h <= s and no empty row
+    (start < 0) in [h, s].  ``index/table.py:_assign_slots`` builds every
+    table so; the kernel's walk (``csrc/gather_probe.cu``) stops at the
+    first empty row and is exact only on such a table."""
+    start = u32.bits32(table_start)
+    T = start.shape[0]
+    rows = np.flatnonzero(start >= 0)
+    if rows.size == 0:
+        return
+    rows = rows.astype(np.int32)
+    hv = hash_prefix_np(u32.bits32(table_lo)[rows].view(np.uint32),
+                        u32.bits32(table_hi)[rows].view(np.uint32))
+    hv = (hv & np.uint32(T - 1)).view(np.int32)
+    # empty[x] = empty rows before row x
+    empty = np.zeros(T + 1, np.int32)
+    np.cumsum(start < 0, dtype=np.int32, out=empty[1:])
+    bad = (hv > rows) | (empty[rows + 1] != empty[np.minimum(hv, rows)])
+    if bad.any():
+        s = int(rows[np.argmax(bad)])
+        h = int(hv[np.argmax(bad)])
+        raise ValueError(
+            f"hash table row {s} (of {T}) holds a prefix of hash row {h}, "
+            + ("behind its hash" if h > s else "past an empty row in between")
+            + ": not a table of linear-probe runs, which the probe needs")
+
+
 def stage_index(h: int, kw: int, max_probes: int, max_bucket: int,
                 num_entries: int, key_words, length, rid1, rid2, ucount1,
                 ucount2, table_lo, table_hi, table_start, table_count,
                 device) -> DeviceIndex:
     """Pack host arrays into a DeviceIndex on ``device``; ``max_probes``
-    and ``max_bucket`` are taken as given."""
+    and ``max_bucket`` are taken as given.  The hash table must be runs of
+    linear probing (``check_probe_runs``)."""
+    check_probe_runs(table_lo, table_hi, table_start)
     E, T = int(length.shape[0]), int(table_start.shape[0])
     erec = np.zeros((E, record_width(kw)), np.int32)
     erec[:, :kw] = u32.bits32(key_words).reshape(E, kw)

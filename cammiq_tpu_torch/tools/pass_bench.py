@@ -2,17 +2,24 @@
 
     python cammiq_tpu_torch/tools/pass_bench.py --repo DIR --merged DIR \\
         [--passes 5]
+    python cammiq_tpu_torch/tools/pass_bench.py --repo DIR --engine gather \\
+        --npz DIR [--passes 5]
 
 Imports ``cammiq_tpu_torch`` from ``--repo`` (any checkout of the port, so
 two versions can be timed in turns on one card, e.g. parent, change,
-change, parent), opens a session on the merged artifact at ``--merged``
-(the config-#3 one ``chip_smoke.py`` builds into ``bench_cache/``),
-samples the reads ``chip_smoke.py`` samples (16 batches of 8192 from the
-bench generator, seed 1), warms up with one pass of each mode, then times
-``--passes`` quant and sc-mode passes in turns (host clock around
-``QuerySession.run``, which ends in its blocking transfer).  Prints one
-JSON line: the checkout, the card, each pass's seconds and the median
-reads/s by mode.
+change, parent) and opens a session: the sort join on the merged artifact
+at ``--merged``, or with ``--engine gather`` the gather engine on the
+``index_u.npz`` / ``index_d.npz`` pair in ``--npz`` (the config-#3 ones
+``chip_smoke.py`` builds into ``bench_cache/``).  It samples the reads
+``chip_smoke.py`` samples (16 batches of 8192 from the bench generator,
+seed 1).  With the gather engine it first holds ``gather_probe`` on the
+first batch to its plain version and times it, device only (``device_ms``),
+also with both tables inside the L2 (``probe_times``).
+Then it warms up with one pass of each mode and times ``--passes`` quant
+and sc-mode passes in turns (host clock around ``QuerySession.run``, which
+ends in its blocking transfer).  Prints one JSON line: the checkout, the
+card, the session start, each pass's seconds, the median reads/s by mode
+and, for the gather engine, the kernel's times.
 """
 
 from __future__ import annotations
@@ -25,12 +32,73 @@ import sys
 import time
 
 
+def device_ms(fn, calls: int = 20, reps: int = 3) -> float | None:
+    """Device time of one call without the host's issue cost: a sleep
+    kernel holds the stream while the host enqueues `calls` calls, so the
+    CUDA events time them back to back on the device.  Median of `reps`;
+    None when the host could not enqueue the calls within the sleep."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    enqueue_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    sleep_s = 4 * enqueue_s + 1e-3
+    times = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(sleep_s * 2e9))       # >= sleep_s below 2 GHz
+        t = time.perf_counter()
+        s.record()
+        for _ in range(calls):
+            fn()
+        e.record()
+        queued = time.perf_counter() - t < sleep_s
+        e.synchronize()
+        if queued:
+            times.append(s.elapsed_time(e) / calls)
+    return statistics.median(times) if times else None
+
+
+def probe_times(sess, reads, reps: int) -> dict:
+    """``gather_probe`` on the session's tables and the first batch: equal
+    to its plain version, and its device-only ms, `reps` times; also with
+    the doubly table in both roles (both tables inside the L2), which
+    leaves out the unique table's DRAM walks."""
+    import torch
+
+    from cammiq_tpu_torch.kernels import gather_probe as kgp
+
+    dev = sess.didx_u.device
+    codes = torch.from_numpy(reads.codes[:8192]).to(dev).contiguous()
+    lengths = torch.from_numpy(reads.lengths[:8192]).to(dev)
+    args = (sess.didx_u, sess.didx_d, codes, lengths)
+    got, want = kgp.gather_probe(*args), kgp.gather_probe_plain(*args)
+    equal = all(torch.equal(g, w) for g, w in zip(got, want))
+    del want
+    l2 = (sess.didx_d, sess.didx_d, codes, lengths)
+    return {"probe_equals_plain": equal,
+            "probe_device_ms": [device_ms(lambda: kgp.gather_probe(*args))
+                                for _ in range(reps)],
+            "probe_l2_tables_device_ms": [device_ms(lambda: kgp.gather_probe(*l2))
+                                          for _ in range(reps)]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--repo", required=True, help="checkout to import the port from")
-    ap.add_argument("--merged", required=True, help="merged artifact directory")
+    ap.add_argument("--engine", choices=("sortjoin", "gather"), default="sortjoin")
+    ap.add_argument("--merged", help="merged artifact directory (sort join)")
+    ap.add_argument("--npz", help="directory of index_u.npz and index_d.npz (gather)")
     ap.add_argument("--passes", type=int, default=5)
     args = ap.parse_args(argv)
+    if (args.engine == "gather") != (args.npz is not None) or \
+            (args.engine == "sortjoin") != (args.merged is not None):
+        ap.error("the sort join takes --merged, the gather engine --npz")
     repo = os.path.abspath(args.repo)
     sys.path[0] = repo      # not this file's directory: the port comes from --repo
 
@@ -38,7 +106,6 @@ def main(argv=None) -> int:
     import torch
 
     from cammiq_tpu_torch.config import QueryConfig
-    from cammiq_tpu_torch.index.artifact import load_merged_artifact
     from cammiq_tpu_torch.io.fastq import ReadSet
     from cammiq_tpu_torch.query.pipeline import QuerySession
     from cammiq_tpu_torch.tools.benchdata import (BENCH_GENOMES, BENCH_GLEN,
@@ -54,10 +121,27 @@ def main(argv=None) -> int:
     lengths = np.concatenate([p[1] for p in parts])
     reads = ReadSet(codes=np.concatenate([p[0] for p in parts]), lengths=lengths,
                     total_len=int(lengths.sum()), name="bench")
-    art = load_merged_artifact(args.merged)
-    sess = QuerySession.from_artifact(
-        art, BENCH_GENOMES + 1, QueryConfig(h=art.h, erate=0.01, batch_size=8192),
-        device="cuda")
+    t = time.perf_counter()
+    if args.engine == "gather":
+        from cammiq_tpu_torch.index.table import load_flat_index_pair
+
+        index_u, index_d = load_flat_index_pair(os.path.join(args.npz, "index_u.npz"),
+                                                os.path.join(args.npz, "index_d.npz"))
+        sess = QuerySession(index_u, index_d, BENCH_GENOMES + 1,
+                            QueryConfig(h=index_u.h, erate=0.01, batch_size=8192),
+                            device="cuda", engine="gather")
+    else:
+        from cammiq_tpu_torch.index.artifact import load_merged_artifact
+
+        art = load_merged_artifact(args.merged)
+        sess = QuerySession.from_artifact(
+            art, BENCH_GENOMES + 1, QueryConfig(h=art.h, erate=0.01, batch_size=8192),
+            device="cuda")
+    torch.cuda.synchronize()
+    result = {"repo": repo, "device": torch.cuda.get_device_name(0),
+              "engine": args.engine, "session_start_s": time.perf_counter() - t}
+    if args.engine == "gather":
+        result.update(probe_times(sess, reads, reps=5))
     passes = {"quant": [], "sc": []}
     for i in range(args.passes + 1):
         for mode in (("quant", "sc") if i % 2 else ("sc", "quant")):
@@ -66,11 +150,9 @@ def main(argv=None) -> int:
             sess.run(reads, sc_mode=mode == "sc")
             if i:                          # pass 0 warms up
                 passes[mode].append(time.perf_counter() - t)
-    print(json.dumps({
-        "repo": repo, "device": torch.cuda.get_device_name(0),
-        "pass_s": passes,
-        "reads_per_s": {m: reads.num_reads / statistics.median(p)
-                        for m, p in passes.items()}}))
+    result.update(pass_s=passes, reads_per_s={
+        m: reads.num_reads / statistics.median(p) for m, p in passes.items()})
+    print(json.dumps(result))
     return 0
 
 

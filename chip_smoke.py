@@ -61,12 +61,14 @@ nothing of JAX or of the JAX package, and exits nonzero if any phase fails:
    zeroed before (a)'s pass and (b)'s batches, read after);
 9. the gather engine at config-#3 scale (query/classify.py, kernel
    gather_probe): QuerySession(engine="gather") on cuda from the npz pair
-   phase 2 saved, the same 16 batches in quant and sc mode (launch counters
+   phase 2 saved (the time of the unique table's probe-run check at
+   staging printed), the same 16 batches in quant and sc mode (launch counters
    zeroed before the quant pass, read after); its counts, rcounts and pair
    counts must equal the sort-join session's (phases 5, 6); one batch in
    each mode under sync debug mode "error" and one sync a pass; the kernel
    against its plain version on the same CUDA tensors at one batch's
-   shapes, beside its bound; quant passes of the two engines in turns
+   shapes, beside its bound and the mean table rows a probe walks in each
+   table (to its hit or its first empty row); quant passes of the two engines in turns
    (reads/s of each); DistQuerySession on a world of one NCCL rank and two
    FlatIndex shards on the one card, their slots concatenated: every count
    equal to the single-device gather's;
@@ -205,38 +207,6 @@ def cuda_median_ms(fn, reps: int = 11, inner: int = 20, warmup: int = 3) -> floa
     return statistics.median(times)
 
 
-def device_ms(fn, calls: int = 20, reps: int = 3) -> float | None:
-    """Device time of one call without the host's issue cost: a sleep
-    kernel holds the stream while the host enqueues `calls` calls, so the
-    CUDA events time them back to back on the device.  Median of `reps`;
-    None when the host could not enqueue the calls within the sleep."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    enqueue_s = time.perf_counter() - t
-    torch.cuda.synchronize()
-    sleep_s = 4 * enqueue_s + 1e-3
-    times = []
-    for _ in range(reps):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(int(sleep_s * 2e9))       # >= sleep_s below 2 GHz
-        t = time.perf_counter()
-        s.record()
-        for _ in range(calls):
-            fn()
-        e.record()
-        queued = time.perf_counter() - t < sleep_s
-        e.synchronize()
-        if queued:
-            times.append(s.elapsed_time(e) / calls)
-    return statistics.median(times) if times else None
-
-
 def probe_canon(out, args):
     """probe_bloom's survivors, keys and count (entries past n are not
     part of the result)."""
@@ -310,11 +280,12 @@ def bound_cuckoo_verify(args, out) -> dict:
 
 def bound_gather_probe(du, dd, codes, lengths, out) -> dict:
     """Bytes: the codes and lengths, each 16-byte table row the probes walk
-    (to a probe's hit, or all max_probes rows), each entry record the
-    bucket scans read (to the match, or the whole scan; kw + 3 words), and
-    13 bytes a slot written, each row and record counted once.  Operations:
-    ~40 a slot (windows, hash), 6 a row walked, 4 kw + 6 an entry
-    scanned."""
+    (to a probe's hit or its first empty row, that row included, at most
+    max_probes rows), each entry record the bucket scans read (to the
+    match, or the whole scan; kw + 3 words), and 13 bytes a slot written,
+    each row and record counted once.  Operations: ~40 a slot (windows,
+    hash), 6 a row walked, 4 kw + 6 an entry scanned.  Also the mean rows
+    walked per probe of each table."""
     import torch
 
     from cammiq_tpu_torch import u32
@@ -331,10 +302,12 @@ def bound_gather_probe(du, dd, codes, lengths, out) -> dict:
             for x in (codes, tp.revcomp_batch(codes, lengths))]
     nbytes = codes.numel() + 4 * B + 13 * slots.numel()
     ops = 40 * slots.numel()
-    for t, (didx, base) in enumerate(((du, 0), (dd, du.length.shape[0]))):
+    rows_walked = {}
+    for t, (name, didx, base) in enumerate((("unique", du, 0),
+                                            ("doubly", dd, du.length.shape[0]))):
         tmask = (1 << didx.table_bits) - 1
         P, MB = didx.max_probes, didx.max_bucket
-        rows, ents = [], []
+        rows, ents, walked_all = [], [], []
         for s, p16 in enumerate(p16s):
             lo = p16[:, :O] & m0
             hi = (p16[:, 16:16 + O] & m1) if du.h > 16 else torch.zeros_like(lo)
@@ -342,14 +315,17 @@ def bound_gather_probe(du, dd, codes, lengths, out) -> dict:
             bstart = torch.full_like(lo, -1)
             bcount = torch.zeros_like(lo)
             walked = torch.full_like(lo, P)
+            alive = torch.ones_like(lo, dtype=torch.bool)
             for p in range(P):
                 slot = (slot0 + p) & tmask
+                start = didx.table_start[slot]
                 hit = ((u32.widen(didx.table_lo[slot]) == lo)
-                       & (u32.widen(didx.table_hi[slot]) == hi)
-                       & (didx.table_start[slot] >= 0) & (bstart < 0))
-                bstart = torch.where(hit, didx.table_start[slot].long(), bstart)
-                bcount = torch.where(hit, didx.table_count[slot].long(), bcount)
-                walked = torch.where(hit, p + 1, walked)
+                       & (u32.widen(didx.table_hi[slot]) == hi) & (start >= 0))
+                stop = alive & (hit | (start < 0))
+                bstart = torch.where(stop & hit, start.long(), bstart)
+                bcount = torch.where(stop & hit, didx.table_count[slot].long(), bcount)
+                walked = torch.where(stop, p + 1, walked)
+                alive &= ~stop
             col = slots[:, (2 * t + s) * O:(2 * t + s + 1) * O].long()
             scanned = torch.where(col < BIG, col - base - bstart + 1,
                                   bcount.clamp(max=MB))
@@ -358,11 +334,13 @@ def bound_gather_probe(du, dd, codes, lengths, out) -> dict:
             rows.append(((slot0[..., None] + ar) & tmask)[ar < walked[..., None]])
             ar = torch.arange(MB, device=dev)
             ents.append((bstart[..., None] + ar)[ar < scanned[..., None]])
+            walked_all.append(walked)
             ops += 6 * int(walked.sum()) + (4 * didx.kw + 6) * int(scanned.sum())
+        rows_walked[name] = float(torch.cat(walked_all).double().mean())
         nbytes += 16 * torch.unique(torch.cat(rows)).numel()
         nbytes += 4 * (didx.kw + 3) * torch.unique(torch.cat(ents)).numel()
         del rows, ents
-    return bound(nbytes, ops)
+    return {**bound(nbytes, ops), "rows_walked_mean": rows_walked}
 
 
 def bound_lcp_pairs(text, sa, lcp) -> dict:
@@ -632,6 +610,8 @@ class Smoke:
         results (``canon`` maps an output to what must be equal), median
         CUDA-event times, the device-only time, the bound beside them."""
         import torch
+
+        from cammiq_tpu_torch.tools.pass_bench import device_ms
 
         got = kern(*args, **kw)
         want = plain(*args, **kw)
@@ -1494,6 +1474,7 @@ class Smoke:
         from cammiq_tpu_torch.parallel.dist_query import DistQuerySession
         from cammiq_tpu_torch.parallel.mesh import ProcessGrid
         from cammiq_tpu_torch.query import classify as gc
+        from cammiq_tpu_torch.query import probe as gprobe
         from cammiq_tpu_torch.query.pipeline import QuerySession
 
         G = self.results["genomes"] + 1
@@ -1511,8 +1492,12 @@ class Smoke:
         out["tables"] = {n: {"entries": x.num_entries, "table_rows": 1 << x.table_bits,
                              "max_probes": x.max_probes, "max_bucket": x.max_bucket,
                              "kw": x.kw} for n, x in (("unique", du), ("doubly", dd))}
+        t = time.time()
+        gprobe.check_probe_runs(index_u.table_lo, index_u.table_hi, index_u.table_start)
+        out["probe_runs_check_s"] = time.time() - t
         log(f"gather session start {out['session_start_s']:.1f} s (npz load "
-            f"included): tables {out['tables']}")
+            f"included): tables {out['tables']}; the unique table's probe-run "
+            f"check at staging {out['probe_runs_check_s']:.3f} s")
         zero_counts()
         counts = gsess.run(reads)
         out["launches"] = read_counts("gather", self.results)
@@ -1551,8 +1536,11 @@ class Smoke:
         hits = int((got[0] < kgp.BIG).sum())
         log(f"gather batch: {hits} matched slots of {got[0].numel()} "
             f"({BATCH} x {got[0].shape[1]})")
+        bnd = bound_gather_probe(*args, got)
+        log(f"gather_probe: mean table rows walked per probe (to the hit or "
+            f"the first empty row) {bnd['rows_walked_mean']}")
         self.compare("gather_probe", kgp.gather_probe, kgp.gather_probe_plain,
-                     args, bound_gather_probe(*args, got), plain_reps=(3, 1, 1))
+                     args, bnd, plain_reps=(3, 1, 1))
         # quant passes of the two engines in turns
         runs = {"sortjoin": [], "gather": []}
         for who in ("sortjoin", "gather", "gather", "sortjoin", "sortjoin", "gather"):

@@ -35,8 +35,9 @@ from cammiq_tpu_torch.query.probe import to_device_index
 import cammiq_tpu_torch.query.sortjoin as tsj
 from cammiq_tpu_torch.query.sortjoin import (TorchMergedIndex, classify_batch,
                                              collect_matches)
-from torch_fixture import (dist_fixture, gather_tables, large_bucket_index,
-                           pair_corpus, planted_reads)
+from torch_fixture import (dist_fixture, end_run_table, flat_table,
+                           gather_tables, large_bucket_index, pair_corpus,
+                           planted_reads)
 
 pytestmark = pytest.mark.cuda
 
@@ -608,7 +609,7 @@ def test_gather_probe_kernel_matches_plain(cuda_device, h, Lp, B):
 def test_gather_probe_kernel_walks_probes(cuda_device, probes):
     """A hash table packed tight (max_probes > 1), and 65 probes over a
     table that needs fewer: each thread takes the first matching row and
-    walks past empty ones, as JAX does."""
+    stops at the first empty row, with JAX's answer."""
     import dataclasses
 
     iu, idd, keys = gather_tables(5, 20, load_factor=4.0)
@@ -617,6 +618,51 @@ def test_gather_probe_kernel_walks_probes(cuda_device, probes):
         iu, idd = (dataclasses.replace(x, max_probes=65) for x in (iu, idd))
     codes, lengths = planted_reads(6, keys, 2048, 100)
     _assert_gather_equal(*_gather_both(iu, idd, codes, lengths, cuda_device))
+
+
+def _stop_case(case):
+    """(unique, doubly, int8 codes, int32 lengths, whether any slot hits) of
+    a case of test_gather_probe_kernel_stops_at_empty_row."""
+    import dataclasses
+
+    rng = np.random.default_rng(30)
+    if case == "end_run_wraps":
+        iu, idd, keys = end_run_table(21, 26)
+        iu = dataclasses.replace(iu, max_probes=65)
+    elif case == "tight_65":
+        iu, idd, keys = gather_tables(13, 26, load_factor=4.0)
+        assert iu.max_probes > 1
+        iu, idd = (dataclasses.replace(x, max_probes=65) for x in (iu, idd))
+    else:
+        iu, idd, keys = gather_tables(15, 26)
+    if case == "all_miss":
+        codes = rng.integers(0, 4, (4096, 100)).astype(np.int8)
+        codes[rng.random(codes.shape) < 0.03] = -1
+        return iu, idd, codes, rng.integers(0, 101, 4096).astype(np.int32), False
+    if case == "poly_a":
+        poly = [0] * 26 + list(rng.integers(0, 4, 8))
+        iu = flat_table(keys[:412] + [poly], False, 26, iu.kw)
+        keys = [poly] * 40 + keys
+    if case == "bucket":
+        assert iu.max_bucket >= 12
+        keys = keys[:12]
+    codes, lengths = planted_reads(31, keys, 4096, 100)
+    if case == "poly_a":
+        codes[::7, 60:95] = 0            # runs of A that match no key
+    return iu, idd, codes, lengths, True
+
+
+@pytest.mark.parametrize("case", ["end_run_wraps", "tight_65", "all_miss",
+                                  "poly_a", "bucket"])
+def test_gather_probe_kernel_stops_at_empty_row(cuda_device, case):
+    """The walk stops at the first empty row and still equals JAX's full
+    walk: a table whose last run ends at row T - 1 (walks from there wrap
+    to row 0 in JAX), a table packed tight with 65 probes, reads that match
+    nothing, a key whose h-prefix is all A (lo = hi = 0, as an empty row's)
+    beside runs of A, and a bucket of twelve entries."""
+    iu, idd, codes, lengths, hits = _stop_case(case)
+    _assert_gather_equal(*_gather_both(iu, idd, codes, lengths, cuda_device),
+                         hits=hits)
 
 
 @pytest.mark.parametrize("empty", ["unique", "doubly"])

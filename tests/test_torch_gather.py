@@ -265,6 +265,196 @@ def test_plain_version_is_the_cpu_path(indexes):
         kgp.gather_probe(du, dd, c.to("meta"), ln.to("meta"))
 
 
+# ---- the walk's stop at the first empty row (csrc/gather_probe.cu)
+
+def _assert_probe_runs(lo, hi, start):
+    """Every occupied row s, of hash h (the JAX package's hash), has
+    h <= s and rows h..s all occupied; and stage_index's check agrees."""
+    T = len(start)
+    hv = jtab.hash_prefix(lo, hi).astype(np.int64) & (T - 1)
+    rows = np.flatnonzero(np.asarray(start) >= 0)
+    for s in rows:
+        assert hv[s] <= s and (np.asarray(start)[hv[s]:s + 1] >= 0).all(), s
+    tp.check_probe_runs(lo, hi, start)
+    return len(rows)
+
+
+def _runs_producer(art, producer):
+    """[(lo, hi, start)] of each hash table a producer builds from the
+    unique entries of ``art``."""
+    from cammiq_tpu.parallel import dist_query as jdq
+    from cammiq_tpu_torch.index import table as ttab
+    from cammiq_tpu_torch.parallel import dist_query as tdq
+
+    iu = art.unique_index
+    entries = (iu.key_words, iu.length, iu.rid1, iu.ucount1, iu.rid2,
+               iu.ucount2, iu.h, False)
+    kind, arg = producer.split("_")
+    if kind == "empty":
+        t = ttab._empty_flat_index(iu.h, iu.kw, False)
+        return [(t.table_lo, t.table_hi, t.table_start)]
+    if kind in ("port", "jax"):
+        build = (ttab if kind == "port" else jtab).build_flat_index_from_entries
+        t = build(*entries, load_factor=float(arg))
+        if float(arg) > 1:
+            assert t.max_probes > 1
+        return [(t.table_lo, t.table_hi, t.table_start)]
+    shard = (tdq if kind == "portshard" else jdq).shard_flat_index
+    s = shard(iu, int(arg))
+    return [(s.table_lo[m], s.table_hi[m], s.table_start[m]) for m in range(s.mp)]
+
+
+@pytest.mark.parametrize("producer", ["port_0.5", "port_4.0", "jax_0.5", "jax_4.0",
+                                      "portshard_2", "portshard_4", "jaxshard_2",
+                                      "jaxshard_4", "empty_0"])
+def test_hash_tables_are_probe_runs(indexes, producer):
+    """Every producer of device tables (the flat builder at load factors
+    0.5 and 4.0, the JAX package's and the port's; the shard builder at 2
+    and 4 shards, both packages'; the empty table) places each bucket at or
+    after its hash row with no empty row in between, never wrapping: the
+    invariant that makes the kernel's stop at an empty row exact."""
+    art, _, _ = indexes(20)
+    occupied = [_assert_probe_runs(*t) for t in _runs_producer(art, producer)]
+    assert (sum(occupied) == 0) == (producer == "empty_0")
+
+
+@pytest.mark.parametrize("fault", ["hole", "behind_hash"])
+def test_stage_index_rejects_broken_runs(indexes, fault):
+    """A table with a row cleared inside a run, or a bucket moved to the
+    row before its hash, is refused at staging: the kernel would answer
+    wrongly on it, and no switch returns to the full walk."""
+    art, _, _ = indexes(20)
+    iu = jtab.build_flat_index_from_entries(
+        *(getattr(art.unique_index, f) for f in ("key_words", "length", "rid1",
+                                                 "ucount1", "rid2", "ucount2")),
+        20, False, load_factor=4.0)
+    T = len(iu.table_start)
+    hv = jtab.hash_prefix(iu.table_lo, iu.table_hi).astype(np.int64) & (T - 1)
+    occ = iu.table_start >= 0
+    lo, hi, start, count = (x.copy() for x in (iu.table_lo, iu.table_hi,
+                                               iu.table_start, iu.table_count))
+    if fault == "hole":
+        s = int(np.flatnonzero(occ & (hv < np.arange(T)))[0])   # displaced
+        start[hv[s]], lo[hv[s]], hi[hv[s]] = -1, 0, 0
+    else:
+        s = int(np.flatnonzero(occ & (hv == np.arange(T)) & ~np.roll(occ, 1)
+                               & (np.arange(T) > 0))[0])
+        for a in (lo, hi, start, count):
+            a[s - 1], a[s] = a[s], 0
+        start[s] = -1
+    bad = dataclasses.replace(iu, table_lo=lo, table_hi=hi, table_start=start,
+                              table_count=count)
+    tp.to_device_index(iu, "cpu")
+    with pytest.raises(ValueError, match="linear-probe runs"):
+        tp.to_device_index(bad, "cpu")
+
+
+M32 = 0xFFFFFFFF
+
+
+def _walk_to_first_empty(idx, codes, lengths):
+    """Entries at every offset of one strand, by a numpy walk that stops at
+    the first row holding the prefix or the first empty row (start < 0),
+    at most max_probes rows; then the first entry of the bucket that fits.
+    Returns (entries int [B, O] or -1, how each walk ended: 0 hit, 1 empty
+    row, 2 cap)."""
+    B, Lp = codes.shape
+    h, kw, P = idx.h, idx.kw, idx.max_probes
+    O = max(Lp - h + 1, 1)
+    T = len(idx.table_start)
+    c = np.concatenate([codes.astype(np.int64) & M32,
+                        np.zeros((B, 16 * kw + 16), np.int64)], 1)
+    p16 = np.zeros((B, Lp), np.int64)
+    for s in range(16):
+        p16 |= (c[:, s:s + Lp] << (2 * s)) & M32
+    p16 = np.concatenate([p16, np.zeros((B, 16 * kw + O), np.int64)], 1)
+    W = [p16[:, 16 * w:16 * w + O] for w in range(kw)]
+
+    def mask(nb):
+        return M32 if nb >= 16 else (1 << (2 * nb)) - 1
+
+    lo = W[0] & mask(min(h, 16))
+    hi = W[1] & mask(min(max(h - 16, 0), 16)) if h > 16 else np.zeros_like(lo)
+    slot0 = jtab.hash_prefix(lo.astype(np.uint32), hi.astype(np.uint32)) & (T - 1)
+    found = np.full((B, O), -1, np.int64)
+    ended = np.full((B, O), 2, np.int64)
+    for b in range(B):
+        for o in range(O):
+            bstart = -1
+            for p in range(P):
+                row = (int(slot0[b, o]) + p) & (T - 1)
+                if idx.table_start[row] < 0:
+                    ended[b, o] = 1
+                    break
+                if idx.table_lo[row] == lo[b, o] and idx.table_hi[row] == hi[b, o]:
+                    bstart, bcount = int(idx.table_start[row]), int(idx.table_count[row])
+                    ended[b, o] = 0
+                    break
+            if bstart < 0:
+                continue
+            for k in range(min(bcount, idx.max_bucket)):
+                e = min(bstart + k, len(idx.length) - 1)
+                elen = int(idx.length[e])
+                if elen <= lengths[b] - o and all(
+                        (int(W[w][b, o]) & mask(min(max(elen - 16 * w, 0), 16)))
+                        == int(idx.key_words[e, w]) for w in range(kw)):
+                    found[b, o] = e
+                    break
+    return found, ended
+
+
+def _poly_a_table(art, rng):
+    """The unique table with one more key whose h-prefix is all A (lo = hi
+    = 0, as an empty row's), and that key."""
+    iu = art.unique_index
+    key = np.concatenate([np.zeros(iu.h, np.int64), rng.integers(0, 4, 9)])
+    words = np.zeros((1, iu.kw), np.uint32)
+    for i, x in enumerate(key):
+        words[0, i // 16] |= np.uint32(x << (2 * (i % 16)))
+    cat = [np.concatenate([getattr(iu, f), x]) for f, x in (
+        ("key_words", words), ("length", [len(key)]), ("rid1", [1]),
+        ("ucount1", [1]), ("rid2", [0]), ("ucount2", [0]))]
+    return jtab.build_flat_index_from_entries(*cat, iu.h, False), key
+
+
+@pytest.mark.parametrize("case", ["minus1", "forced_probes", "probes_65", "poly_a"])
+def test_walk_to_first_empty_row_matches_jax(indexes, case):
+    """Stopping each walk at the first empty row gives JAX's probe_strand
+    (which walks all max_probes rows) exactly, on both strands: reads with
+    -1 codes, a table packed tight, 65 probes, and a key whose h-prefix is
+    all A planted in reads beside runs of A that match no key."""
+    art, gs, planted = indexes(20)
+    rng = np.random.default_rng(11)
+    codes, lengths = make_reads(gs, planted, 12, 20, minus1=0.03)
+    iu = _tables(art, "plain" if case in ("minus1", "poly_a") else case)[0]
+    if case == "poly_a":
+        iu, key = _poly_a_table(art, rng)
+        for b in range(0, 40, 2):
+            at = int(rng.integers(0, lengths[b] - len(key) + 1))
+            codes[b, at:at + len(key)] = key if b % 4 else 3 - key[::-1]
+        codes[1::4, 10:40] = 0
+    O = LP - 20 + 1
+    ju = jp.to_device_index(iu)
+    probe = jax.jit(partial(jp.probe_strand, ju))
+    ended_all, found = [], []
+    for strand in (codes, np.asarray(jc.revcomp_batch(jnp.asarray(codes),
+                                                      jnp.asarray(lengths)))):
+        want = np.asarray(probe(jp.pack_rolling16(jnp.asarray(strand)),
+                                jnp.asarray(lengths), jnp.arange(O, dtype=jnp.int32)))
+        got, ended = _walk_to_first_empty(iu, strand, lengths)
+        np.testing.assert_array_equal(got, want)
+        assert (want >= 0).sum() > 10
+        ended_all.append(ended)
+        found.append(want)
+    ended = np.concatenate(ended_all)
+    assert (ended == 1).sum() > 0.5 * ended.size       # most walks end at an empty row
+    if case == "probes_65":
+        assert not (ended == 2).any()
+    if case == "poly_a":
+        e = np.flatnonzero((iu.length == len(key)) & (iu.key_words[:, 0] == 0))
+        assert len(e) == 1 and (np.concatenate(found) == e[0]).sum() >= 10
+
+
 # ---- classify_batch and rcounts
 
 @pytest.mark.parametrize("sc_mode", [False, True])

@@ -80,6 +80,32 @@ def gather_tables(seed, h, n_u=400, n_d=60, load_factor=0.5):
             flat_table(d, True, h, kw, load_factor), u + d)
 
 
+def end_run_table(seed, h, n=300):
+    """(unique FlatIndex, doubly FlatIndex, unique keys): the unique table
+    has 2^10 rows, its last run ends at row T - 1 and row 0 is occupied,
+    so a walk from its last rows wraps to the top of the table."""
+    from cammiq_tpu_torch.index.table import _prefix_lo_hi, hash_prefix
+
+    rng = np.random.default_rng(seed)
+    kw = max(2, (h + 13 + 15) // 16)
+    T = 1024                        # n keys at load factor 0.5
+    wanted = {T - 2: 1, T - 1: 1, 0: 1}
+    keys = []
+    while len(keys) < n:
+        k = list(rng.integers(0, 4, int(rng.integers(h, h + 14))))
+        lo, hi = _prefix_lo_hi(np.asarray([_pack(k, kw)], np.uint32), h)
+        s = int(hash_prefix(lo, hi)[0]) & (T - 1)
+        if wanted.get(s):
+            wanted[s] -= 1
+            keys.append(k)
+        elif 0 < s < T - 64 and len(keys) < n - sum(wanted.values()):
+            keys.append(k)
+    iu = flat_table(keys, False, h, kw)
+    assert len(iu.table_start) == T and iu.table_start[[0, T - 2, T - 1]].min() >= 0
+    d = [list(rng.integers(0, 4, int(rng.integers(h, h + 14)))) for _ in range(40)]
+    return iu, flat_table(d, True, h, kw), keys
+
+
 def planted_reads(seed, keys, B, Lp, minus1=0.03):
     """int8 codes [B, Lp] and int32 lengths: random reads (a tenth empty or
     shorter than 16) with one key each planted, a third of them reverse

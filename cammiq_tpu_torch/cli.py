@@ -4,11 +4,33 @@ The flags are those of ``cammiq_tpu.cli``; ``_err`` and ``parse_args`` are
 copies of it (27-170).  ``--device`` (default ``cuda``) picks the torch
 device; a missing card under ``cuda`` raises.
 
-``--build`` runs this package's index build (``index/builder.py``) on
-``--device`` for every ``--engine`` (the JAX package's engines give the
-same index), with the outputs of ``cammiq_tpu.cli.run_build`` (``.npz``
-tables, meta files, ``--merged``).  ``--build_hosts > 1`` (the host
-distributed builder) is not ported yet and raises NotImplementedError.
+``--build`` runs this package's index build (``index/builder.py``) with
+the outputs of ``cammiq_tpu.cli.run_build`` (``.npz`` tables, meta files,
+``--merged``), and names on stderr the engine that ran:
+
+  --engine auto|jax|any other (default)     the device build on --device;
+                                            a corpus of 2^31 positions or
+                                            more raises and names the
+                                            host engines
+  --engine native                           the host build: the native
+                                            bounded sort (SA-IS with
+                                            --exact_sa) and C++ sweeps;
+                                            numpy where the native
+                                            library is not built
+  --engine numpy                            the host build in numpy
+  --build_hosts H > 1                       the cross-host build
+                                            (parallel/dist_build.py) from
+                                            a corpus streamed to a
+                                            temporary directory, where the
+                                            native bounded sort is built;
+                                            else the single-host build of
+                                            --engine (the native bounded
+                                            sort then over H slices)
+
+The index is the JAX CLI's with the same flags (its ``auto`` is the
+native engine; the device build gives the same index).  ``--build_hosts
+H`` gives ``build_index(num_groups=min(H, 4, M))``'s index, as in
+``cammiq_tpu``.
 
 ``--query`` runs this package's query session and solvers:
 
@@ -44,6 +66,7 @@ device.
 from __future__ import annotations
 
 import os
+import shutil
 import sys
 from typing import List, Optional
 
@@ -216,18 +239,15 @@ def split_device(argv: List[str]) -> tuple[str, List[str]]:
 
 
 def run_build(a: dict, device: str) -> None:
-    """``--build``: the single-host branch of ``cammiq_tpu.cli.run_build``
-    with the device stages on ``device``, whatever ``--engine`` names."""
-    from .device import resolve_device
-    from .index.builder import build_index, write_meta_outputs
+    """``--build``: ``cammiq_tpu.cli.run_build`` (196-235) with the engine
+    map of this package: ``--engine native|numpy`` the host build,
+    ``--build_hosts H > 1`` the cross-host build where the native bounded
+    sort is built (else the single-host build with ``sa_hosts=H``), any
+    other engine the device build on ``device``."""
+    from .index.builder import HOST_ENGINES, build_index, write_meta_outputs
     from .index.table import save_flat_index
     from .io.fasta import build_corpus, list_fasta_dir, read_map_file
 
-    if a["build_hosts"] > 1:
-        raise NotImplementedError(
-            "the distributed host build (--build_hosts > 1) is not ported "
-            "to cammiq_tpu_torch yet")
-    dev = resolve_device(device)
     cfg = BuildConfig(
         k=a["K"] or 26,
         L=a["L"] or 100,
@@ -236,6 +256,9 @@ def run_build(a: dict, device: str) -> None:
         h2=a["h2"],
         mode=a["idx_option"] or "both",
         num_groups=min(a["t"], 4),
+        # --exact_sa: full SA-IS sort instead of the depth-bounded suffix
+        # sort (identical index; deep-repeat skipped-candidate bookkeeping
+        # parity, see BuildConfig.bounded_sa)
         bounded_sa=not a["exact_sa"],
     )
     if a["fm_name"]:
@@ -245,7 +268,35 @@ def run_build(a: dict, device: str) -> None:
         files = list_fasta_dir(a["fa_dir"])
     else:
         _err("Please specify a map file (-f) or fasta directory (-D).")
-    corpus = build_corpus(files)
+    hosts = a["build_hosts"]
+    use_dist = hosts > 1 and not (cfg.occ_u8_wrap or cfg.unique_if_advance)
+    if use_dist:
+        from . import native as _native
+
+        use_dist = _native.available() and _native.has_bsort()
+    engine = a["engine"] if a["engine"] in HOST_ENGINES else "device"
+    if engine == "device" and not use_dist:
+        # a missing card raises before the corpus is read
+        from .device import resolve_device
+
+        device = resolve_device(device)
+    if use_dist:
+        # memory-honest cross-host pipeline: the corpus STREAMS to disk
+        # (the coordinator holds O(largest contig)), then sharded sort +
+        # distributed merge + chunk-carried sweeps + per-shard
+        # selection; identical index to
+        # build_index(num_groups=min(hosts,4,M)) (the text shards ARE
+        # the reference's per-thread selection groups)
+        import tempfile
+
+        from .io.fasta import build_corpus_streaming
+        from .parallel.dist_build import dist_build_index
+
+        wd = tempfile.mkdtemp(prefix="cammiq_dist_")
+        corpus = build_corpus_streaming(
+            files, os.path.join(wd, "src_corpus.bin"))
+    else:
+        corpus = build_corpus(files)
     print(
         f"****************************\n"
         f"Total num bases: {corpus.n}\n"
@@ -254,7 +305,15 @@ def run_build(a: dict, device: str) -> None:
         f"****************************",
         file=sys.stderr,
     )
-    art = build_index(corpus, cfg, device=dev, verbose=True)
+    if use_dist:
+        print(f"build engine: cross-host, {hosts} slices", file=sys.stderr)
+        try:
+            art, _ = dist_build_index(corpus, cfg, hosts, wd, verbose=True)
+        finally:
+            shutil.rmtree(wd, ignore_errors=True)
+    else:
+        art = build_index(corpus, cfg, device=device, engine=engine,
+                          verbose=True, sa_hosts=hosts)
     outdir = os.path.dirname(a["fi_u"]) or "."
     os.makedirs(outdir, exist_ok=True)
     if art.unique_index is not None:

@@ -1,6 +1,6 @@
 """Sparsified index selection + unique-L-mer counting: a copy of
-``cammiq_tpu/index/sparsify.py`` (without the sharded-build hook
-``start_file``).
+``cammiq_tpu/index/sparsify.py`` (``MU_EMPTY`` defined here: the port's
+``index/unique.py`` is the device build's and imports torch).
 
 Operational port of the reference's computeIndexmin / computeIndexmin_d(_)
 (src/build.cpp:336-629): walk candidate end-positions (MU-set) in text
@@ -54,9 +54,17 @@ class SelectedSubstrings:
         return int(self.start.shape[0])
 
 
-def _group_spans(ref_pos, M: int, num_groups: int):
-    """Selection-group text spans [(i0, nexti, first_file)]."""
+def _group_spans(ref_pos, M: int, num_groups: int, start_file):
+    """Selection-group text spans [(i0, nexti, first_file)].
+
+    start_file is the sharded-build hook (parallel/dist_build.py): one
+    group covering files [start_file, M), with the group-start state of
+    a monolithic run whose group boundary falls exactly there — the
+    preceding files are context-only (a pad in the caller's view)."""
     ref_pos = np.asarray(ref_pos, np.int64)
+    if start_file is not None:
+        i0 = 1 if start_file == 0 else int(ref_pos[start_file - 1])
+        return [(i0, int(ref_pos[M - 1]), start_file)]
     nref = M // num_groups
     out = []
     for tid in range(num_groups):
@@ -85,6 +93,7 @@ def select_substrings(
     num_groups: int = 1,
     engine: str = "auto",
     unique_if_advance: bool = False,
+    start_file: Optional[int] = None,
 ) -> SelectedSubstrings:
     """Sparsified selection; engine='fast' uses the vectorized path
     (identical output, see select_substrings_fast), 'exact' the scalar
@@ -100,11 +109,16 @@ def select_substrings(
 
     engine='native' (auto-picked when the C++ library is built) runs the
     O(n)-time / O(1)-memory sweep in native/sweeps.cpp - the production
-    path at multi-GB corpus scale."""
+    path at multi-GB corpus scale.
+
+    start_file: sharded-build hook (see _group_spans) — python engines
+    only, so it forces 'fast' under auto/native."""
+    if start_file is not None and engine in ("auto", "native"):
+        engine = "fast"
     if engine in ("auto", "native"):
         from .. import native as _native
 
-        if _native.available():
+        if _native.has_sweeps():
             starts, lens, ris, ulm = _native.select_sweep(
                 corpus.seq, mu,
                 corpus.contig_pos, corpus.ref_pos, L, Lmax,
@@ -134,12 +148,13 @@ def select_substrings(
     if engine == "fast":
         return select_substrings_fast(
             corpus, mu, occ, L, Lmax, gsa2_text=gsa2_text, occ2=occ2,
-            num_groups=num_groups,
+            num_groups=num_groups, start_file=start_file,
         )
     return select_substrings_exact(
         corpus, mu, occ, L, Lmax, gsa2_text=gsa2_text, occ2=occ2,
         num_groups=num_groups,
         unique_if_advance=unique_if_advance and gsa2_text is None,
+        start_file=start_file,
     )
 
 
@@ -153,6 +168,7 @@ def select_substrings_exact(
     occ2: Optional[np.ndarray] = None,
     num_groups: int = 1,
     unique_if_advance: bool = False,
+    start_file: "Optional[int]" = None,
 ) -> SelectedSubstrings:
     """Reference-exact sequential engine (src/build.cpp:336-629).
 
@@ -187,7 +203,7 @@ def select_substrings_exact(
     cand_pos = np.nonzero(mu[: int(ref_pos[-1])] != MU_EMPTY)[0]
     cand_pos = cand_pos[cand_pos >= 1]
 
-    groups = _group_spans(ref_pos, M, num_groups)
+    groups = _group_spans(ref_pos, M, num_groups, start_file)
     for i0, nexti, ri0 in groups:
         ci = int(np.searchsorted(contig_pos, i0, side="right"))
         ri = ri0
@@ -278,6 +294,7 @@ def select_substrings_fast(
     gsa2_text: Optional[np.ndarray] = None,
     occ2: Optional[np.ndarray] = None,
     num_groups: int = 1,
+    start_file: "Optional[int]" = None,
 ) -> SelectedSubstrings:
     """Vectorized engine, output-identical to select_substrings_exact.
 
@@ -321,7 +338,7 @@ def select_substrings_fast(
     cp4 = contig_pos - 4
     rp4 = ref_pos - 4
 
-    for i0, nexti, ri0 in _group_spans(ref_pos, M, num_groups):
+    for i0, nexti, ri0 in _group_spans(ref_pos, M, num_groups, start_file):
         lo = int(np.searchsorted(cand_all, i0, side="left"))
         hi = int(np.searchsorted(cand_all, nexti, side="left"))
         iv = cand_all[lo:hi]

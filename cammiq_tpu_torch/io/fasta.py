@@ -1,5 +1,6 @@
-"""FASTA ingestion and corpus assembly: a copy of ``cammiq_tpu/io/fasta.py``
-(without the streaming corpus of the distributed build).
+"""FASTA ingestion and corpus assembly: a copy of ``cammiq_tpu/io/fasta.py``,
+the streaming corpus of the cross-host build (``build_corpus_streaming``,
+191-246) included.
 
 Reproduces the reference corpus layout exactly (src/build.cpp:124-266):
 
@@ -180,6 +181,63 @@ def build_corpus(files: Sequence[Tuple[str, int]]) -> Corpus:
         raise ValueError("Total number of symbols exceeds limit.")
 
     seq = np.concatenate(pieces) if pieces else np.zeros(0, dtype=np.uint8)
+    return Corpus(
+        seq=seq,
+        contig_pos=np.asarray(contig_pos, dtype=np.uint64),
+        ref_pos=np.asarray(ref_pos, dtype=np.uint64),
+        ref_id=np.asarray(ref_id, dtype=np.uint32),
+        filenames=names,
+    )
+
+
+def build_corpus_streaming(files: Sequence[Tuple[str, int]],
+                           seq_path: str) -> Corpus:
+    """build_corpus with O(largest contig) coordinator memory: contig bytes
+    stream straight to `seq_path` (raw uint8; np.memmap-able) instead of
+    accumulating in RAM, and the returned Corpus's seq is a read-only
+    memmap of that file.  The memory-honest companion of the cross-host
+    build (parallel/dist_build.py) — at reference-cap corpora
+    (maxN = 2^36, src/util.hpp:13) no single process can hold the text.
+    Byte-identical to build_corpus (tested)."""
+    contig_pos: List[int] = []
+    ref_pos: List[int] = []
+    ref_id: List[int] = []
+    names: List[str] = []
+    pos = 0
+    contig_counter = 0
+    with open(seq_path, "wb") as out:
+        for path, gid in files:
+            for contig in _parse_fasta_contigs(path):
+                if len(contig) == 0:
+                    continue
+                fwd = ((contig.astype(np.uint16) + BASE_OFFSET)
+                       & 0xFF).astype(np.uint8)
+                out.write(fwd.tobytes())
+                pos += len(fwd)
+                out.write(_contig_separator(contig_counter).tobytes())
+                pos += 4
+                contig_pos.append(pos)
+                contig_counter += 1
+                if contig_counter >= MAX_C:
+                    raise ValueError("Number of contigs exceeds limit.")
+                rc_ascii = RC_IDX[contig[::-1]]
+                rc = ((rc_ascii.astype(np.uint16) + BASE_OFFSET)
+                      & 0xFF).astype(np.uint8)
+                out.write(rc.tobytes())
+                pos += len(rc)
+                out.write(_contig_separator(contig_counter).tobytes())
+                pos += 4
+                contig_pos.append(pos)
+                contig_counter += 1
+            ref_pos.append(pos)
+            ref_id.append(gid)
+            names.append(path)
+            if len(ref_pos) >= MAX_M:
+                raise ValueError("Number of reference genomes exceeds limit.")
+    if pos >= MAX_N:
+        raise ValueError("Total number of symbols exceeds limit.")
+    seq = (np.memmap(seq_path, dtype=np.uint8, mode="r") if pos
+           else np.zeros(0, dtype=np.uint8))
     return Corpus(
         seq=seq,
         contig_pos=np.asarray(contig_pos, dtype=np.uint64),

@@ -88,7 +88,17 @@ nothing of JAX or of the JAX package, and exits nonzero if any phase fails:
    clamp 32, its thread phase alone), and, with their plain
    versions, on a contiguous slice of 2^24 ranks around the longest LCP
    (the plain versions loop in Python over live sets, too slow for 6e8
-   ranks within the time limit); exact equality required.
+   ranks within the time limit); exact equality required;
+13. the host build engines (index/builder.py engine="native", parallel/
+   dist_build.py) against phase 11's cuda build, on the host's CPU cores
+   (model and os.cpu_count() printed): (a) the native bounded sort and
+   (b) SA-IS (bounded_sa=False) at BUILD_CHECK_GENOMES genomes, (c) the
+   cross-host build of 2 slices in worker processes at DIST_GENOMES
+   genomes against the cuda build with num_groups=2; each index, its ulm
+   counts and meta files identical, the first_of_run, lcp_pairs and
+   occ_count launches of phase 11's cuda build required; stage seconds
+   beside the cuda build's and the cross-host build's peak RSS per worker
+   printed (run after phase 11, before phase 12).
 
 Every kernel time is printed beside its bound and its device-only time
 (CUDA events around calls queued behind a sleep kernel, so they run back
@@ -128,6 +138,7 @@ N_BATCHES = 16
 SCAN_N = 1 << 20
 TOY_TOL = 0.01
 BUILD_CHECK_GENOMES = 64
+DIST_GENOMES = 8
 SLICE = 1 << 24
 DEV = "cuda"
 # what torch's sync debug mode "warn" says at each host sync (its notice
@@ -160,6 +171,7 @@ PATH_KERNELS = {
     "grid": ("first_of_run", "probe_bloom", "cuckoo_verify"),
     "shards": ("first_of_run", "probe_bloom", "cuckoo_verify"),
     "build": ("first_of_run", "lcp_pairs", "occ_count"),
+    "build_check": ("first_of_run", "lcp_pairs", "occ_count"),
     "gather": ("gather_probe",),
     "gather_grid": ("gather_probe",),
     "gather_shards": ("gather_probe",),
@@ -495,9 +507,57 @@ def assert_same_index(got, want, what: str) -> None:
             raise AssertionError(f"{what}: {f} differs")
 
 
-def stage_table(stages: dict, peaks: dict, other: dict | None = None) -> str:
+def assert_same_artifacts(got, want, what: str) -> None:
+    """Both tables, the ulm counts, the genome lengths and the meta files of
+    two builds."""
+    import numpy as np
+
+    from cammiq_tpu_torch.index.builder import write_meta_outputs
+
+    for name in ("unique_index", "doubly_index"):
+        assert_same_index(getattr(got, name), getattr(want, name), f"{what} {name}")
+    for f in ("ulm_count_u", "ulm_count_d", "genome_lengths"):
+        if not np.array_equal(getattr(got, f), getattr(want, f)):
+            raise AssertionError(f"{what}: {f} differs")
+    tmp = tempfile.mkdtemp(prefix="smoke_meta_", dir=OUT_DIR)
+    try:
+        for tag, art in (("got", got), ("want", want)):
+            write_meta_outputs(art, os.path.join(tmp, tag))
+        for f in META_FILES:
+            with open(os.path.join(tmp, "got", f)) as a, \
+                    open(os.path.join(tmp, "want", f)) as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"{what}: {f} differs")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def cpu_model() -> str:
+    """The host CPU's model name (/proc/cpuinfo, else lscpu), and the
+    machine's architecture."""
+    import platform
+
+    name = ""
+    try:
+        with open("/proc/cpuinfo") as f:
+            name = next((ln.split(":", 1)[1].strip() for ln in f
+                         if ln.startswith("model name")), "")
+    except OSError:
+        pass
+    if not name:
+        try:
+            r = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=30)
+            name = next((ln.split(":", 1)[1].strip() for ln in r.stdout.splitlines()
+                         if ln.strip().startswith("Model name")), "")
+        except (OSError, subprocess.TimeoutExpired):
+            pass
+    return f"{name or 'model not reported'} ({platform.machine()})"
+
+
+def stage_table(stages: dict, peaks: dict, other: dict | None = None,
+                other_name: str = "cpu") -> str:
     return "\n".join(
-        f"  {k:<48} {v:9.3f} s" + (f"   cpu {other.get(k, float('nan')):9.3f} s"
+        f"  {k:<48} {v:9.3f} s" + (f"   {other_name} {other.get(k, float('nan')):9.3f} s"
                                    if other is not None else "")
         + (f"   peak {peaks[k] / 1e9:6.2f} GB" if k in peaks else "")
         for k, v in stages.items())
@@ -1145,10 +1205,8 @@ class Smoke:
 
     # ---- 11. the device build against the CPU build at a reduced size
     def build_vs_cpu(self):
-        import numpy as np
-
         from cammiq_tpu_torch.config import BuildConfig
-        from cammiq_tpu_torch.index.builder import build_index, write_meta_outputs
+        from cammiq_tpu_torch.index.builder import build_index
         from cammiq_tpu_torch.io.fasta import corpus_from_sequences
         from cammiq_tpu_torch.tools.benchdata import BENCH_GLEN, gen_genomes
 
@@ -1156,38 +1214,182 @@ class Smoke:
         cfg = BuildConfig(k=26, L=100, Lmax=50, h=26, mode="both")
         arts, secs = {}, {}
         for dev in (DEV, "cpu"):
+            zero_counts()
             t = time.time()
             with contextlib.redirect_stderr(io.StringIO()):
                 arts[dev] = build_index(corpus, cfg, device=dev, verbose=True)
             secs[dev] = time.time() - t
+            if dev == DEV:
+                launches = read_counts("build_check", self.results)
         got, want = arts[DEV], arts["cpu"]
-        for name in ("unique_index", "doubly_index"):
-            assert_same_index(getattr(got, name), getattr(want, name),
-                              f"build cuda vs cpu {name}")
-        for f in ("ulm_count_u", "ulm_count_d", "genome_lengths"):
-            if not np.array_equal(getattr(got, f), getattr(want, f)):
-                raise AssertionError(f"build cuda vs cpu: {f} differs")
-        tmp = tempfile.mkdtemp(prefix="smoke_meta_", dir=OUT_DIR)
-        try:
-            for dev, art in arts.items():
-                write_meta_outputs(art, os.path.join(tmp, dev))
-            for f in META_FILES:
-                with open(os.path.join(tmp, DEV, f)) as a, \
-                        open(os.path.join(tmp, "cpu", f)) as b:
-                    if a.read() != b.read():
-                        raise AssertionError(f"build cuda vs cpu: {f} differs")
-        finally:
-            shutil.rmtree(tmp, ignore_errors=True)
+        assert_same_artifacts(got, want, "build cuda vs cpu")
         stages = {d: a.timings.as_dict() for d, a in arts.items()}
         self.results["build_vs_cpu"] = {
             "genomes": BUILD_CHECK_GENOMES, "n": corpus.n, "build_s": secs,
-            "stages_s": stages,
+            "stages_s": stages, "launches": launches,
             "entries": (got.unique_index.num_entries, got.doubly_index.num_entries)}
+        # phase 13 holds the host engines to this cuda build
+        self.build_check = (corpus, cfg, got, secs[DEV], launches)
         log(f"build of n={corpus.n} ({BUILD_CHECK_GENOMES} genomes): cuda "
             f"{secs[DEV]:.1f} s, cpu {secs['cpu']:.1f} s; both tables "
             f"({got.unique_index.num_entries}, {got.doubly_index.num_entries} "
-            f"entries), ulm counts and meta files identical; stages (cuda | cpu):\n"
+            f"entries), ulm counts and meta files identical; launches of the cuda "
+            f"build {launches}; stages (cuda | cpu):\n"
             + stage_table(stages[DEV], {}, stages["cpu"]))
+
+    # ---- 13. the host build engines against the device build on cuda
+    def host_engines(self):
+        import dataclasses
+
+        from cammiq_tpu_torch import native
+        from cammiq_tpu_torch.index.builder import build_index
+
+        if not (native.available() and native.has_bsort()):
+            raise RuntimeError(f"native bounded sort unavailable: {native.build_error()}")
+        corpus, cfg, dev_art, dev_s, launches = self.build_check
+        out = {"n": corpus.n, "cpu_count": os.cpu_count(), "cpu_model": cpu_model(),
+               "device_build_s": dev_s, "device_launches": launches,
+               "device_stages_s": dev_art.timings.as_dict()}
+        log(f"host: {out['cpu_model']}, os.cpu_count() = {out['cpu_count']}")
+        # (a) the bounded sort, (b) SA-IS (--exact_sa), each on the host
+        for tag, bounded, want in (("native_bounded", True, "native bounded sort"),
+                                   ("native_sais", False, "native SA-IS")):
+            err = io.StringIO()
+            t = time.time()
+            with contextlib.redirect_stderr(err):
+                art = build_index(corpus, dataclasses.replace(cfg, bounded_sa=bounded),
+                                  engine="native", verbose=True)
+            secs = time.time() - t
+            if f"build engine: {want}, host" not in err.getvalue():
+                raise AssertionError(f"{tag}: engine line missing: {err.getvalue()[:300]}")
+            assert_same_artifacts(art, dev_art, f"{tag} vs cuda build")
+            out[tag] = {"build_s": secs, "stages_s": art.timings.as_dict()}
+            log(f"{tag} host build of n={corpus.n} ({BUILD_CHECK_GENOMES} genomes): "
+                f"{secs:.1f} s against the cuda build's {dev_s:.1f} s; index, ulm counts "
+                f"and meta files identical; stages (host | cuda):\n"
+                + stage_table(art.timings.as_dict(), {}, dev_art.timings.as_dict(), "cuda"))
+            del art
+        # (c) the cross-host build through the CLI, in a process of its own
+        # (its workers' peak RSS starts from their coordinator's, which Linux
+        # carries across exec), 2 slices in worker processes, at a cut
+        # corpus: its P3 sweep is one serial worker with a Python loop a run
+        root = os.path.join(REPO, "bench_cache", "smoke_dist_build")
+        shutil.rmtree(root, ignore_errors=True)
+        try:
+            out["dist"] = self._cross_host_build(root, cfg)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        self.results["host_engines"] = out
+
+    def _cross_host_build(self, root, cfg) -> dict:
+        import dataclasses
+
+        import numpy as np
+
+        from cammiq_tpu_torch.index.builder import build_index, save_index
+        from cammiq_tpu_torch.io.fasta import build_corpus
+        from cammiq_tpu_torch.tools.benchdata import BENCH_GLEN, gen_genomes
+
+        db = os.path.join(root, "fasta")
+        os.makedirs(db)
+        files = []
+        with open(os.path.join(root, "map.out"), "w") as m:
+            for g, (seq,) in enumerate(gen_genomes(DIST_GENOMES, BENCH_GLEN)):
+                with open(os.path.join(db, f"g{g:02d}.fasta"), "wb") as f:
+                    f.write(b">g%d\n%s\n" % (g, seq))
+                m.write(f"g{g:02d}.fasta\t{g + 1}\t{g + 1}\tG{g}\n")
+                files.append((os.path.join(db, f"g{g:02d}.fasta"), g + 1))
+        ours = os.path.join(root, "dist")
+        tmp = os.path.join(root, "tmp")
+        os.makedirs(tmp)
+        argv = [sys.executable, "-m", "cammiq_tpu_torch.cli", "--build", "--both",
+                "-k", str(cfg.k), "-L", str(cfg.L), "-Lmax", str(cfg.Lmax),
+                "-h", str(cfg.h), "-f", os.path.join(root, "map.out"), "-D", db + "/",
+                "--build_hosts", "2", "-i", os.path.join(ours, "index_u.npz"),
+                os.path.join(ours, "index_d.npz")]
+        # through a shell that waits on it: a process forked from this one
+        # and exec'd would start its peak RSS at this process's (Linux
+        # carries ru_maxrss across exec), and the coordinator's peak is P3's
+        t = time.time()
+        r = subprocess.run(["/bin/sh", "-c", '"$@"; exit $?', "sh", *argv], cwd=REPO,
+                           capture_output=True, text=True, timeout=600,
+                           env=dict(os.environ, PYTHONPATH=REPO, TMPDIR=tmp))
+        dist_s = time.time() - t
+        if r.returncode:
+            raise RuntimeError(f"cross-host build failed: {r.stderr[-3000:]}")
+        if "build engine: cross-host, 2 slices" not in r.stderr or os.listdir(tmp):
+            raise AssertionError(f"cross-host build: engine line or work dir: {r.stderr[-2000:]}")
+        rss = {m.group(1): json.loads(m.group(2)) for m in re.finditer(
+            r"\[dist-build\] (\w+): peak RSS MB per worker = (\[.*?\])", r.stderr)}
+        if sorted(rss) != sorted(("baseline", "p1_sort_partition", "p2_merge_chunks",
+                                  "p3_sweeps", "p4_select")):
+            raise AssertionError(f"cross-host build: RSS report {rss}")
+        # the reference: the device build on cuda of the same corpus with
+        # the selection groups the 2 text shards give (num_groups=2)
+        corpus = build_corpus(sorted(files))
+        t = time.time()
+        with contextlib.redirect_stderr(io.StringIO()):
+            want = build_index(corpus, dataclasses.replace(cfg, num_groups=2),
+                               device=DEV, verbose=True)
+        dev_s = time.time() - t
+        save_index(want, os.path.join(root, "cuda"))
+        for name in ("index_u.npz", "index_d.npz"):
+            with np.load(os.path.join(ours, name)) as a, \
+                    np.load(os.path.join(root, "cuda", name)) as b:
+                if sorted(a.files) != sorted(b.files) or not all(
+                        a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])
+                        for k in b.files):
+                    raise AssertionError(f"cross-host build vs cuda build: {name} differs")
+        for f in META_FILES:
+            with open(os.path.join(ours, f)) as a, open(os.path.join(root, "cuda", f)) as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"cross-host build vs cuda build: {f} differs")
+        # the phases' seconds: the same build in this process, its workers
+        # run in turn (processes=False) and timed one by one
+        import cammiq_tpu_torch.parallel.dist_build as db
+
+        phase_s = {}
+        originals = {w: getattr(db, w) for w in
+                     ("_p1_worker", "_p2_worker", "_p3_worker", "_p4_worker")}
+
+        def timed(name, fn):
+            def run(args):
+                t = time.time()
+                try:
+                    return fn(args)
+                finally:
+                    phase_s[name] = phase_s.get(name, 0.0) + time.time() - t
+            return run
+
+        for w, fn in originals.items():
+            setattr(db, w, timed(w[1:3], fn))
+        t = time.time()
+        try:
+            with contextlib.redirect_stderr(io.StringIO()):
+                again, _ = db.dist_build_index(corpus, cfg, 2,
+                                               os.path.join(root, "serial"),
+                                               processes=False)
+        finally:
+            for w, fn in originals.items():
+                setattr(db, w, fn)
+        serial_s = time.time() - t
+        assert_same_artifacts(again, want, "serial cross-host build vs cuda build")
+        base = max(rss["baseline"])
+        log(f"the same build in one process, workers in turn: {serial_s:.1f} s; "
+            f"seconds by phase (the rest is the coordinator's): "
+            + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
+        log(f"cross-host build (cli --build_hosts 2, worker processes) of n={corpus.n} "
+            f"({DIST_GENOMES} genomes, cut from {BUILD_CHECK_GENOMES} for its serial P3 "
+            f"sweep): {dist_s:.1f} s in all, against the cuda build's {dev_s:.1f} s "
+            f"(num_groups=2); tables and meta files identical; peak RSS MB per worker "
+            f"(baseline: a worker that only starts, {base:.1f} MB; P3, one job, runs "
+            f"in the coordinator, so its number is the coordinator's peak):\n"
+            + "\n".join(f"  {k:<18} {vs}" for k, vs in rss.items()))
+        return {"genomes": DIST_GENOMES, "n": corpus.n, "hosts": 2, "cli_s": dist_s,
+                "device_build_s": dev_s, "rss_mb": rss, "serial_s": serial_s,
+                "serial_phase_s": phase_s}
+
+        self.results["host_engines"] = out
 
     # ---- 12. build kernels vs plain versions on the build's tensors
     def build_kernels(self):
@@ -1675,6 +1877,11 @@ def main() -> int:
         torch.cuda.empty_cache()
     s.phase("toy Type-II and build through the CLI", s.toy_type2)
     s.phase("device build vs CPU build", s.build_vs_cpu)
+    if "device build vs CPU build" in s.failed:
+        s.failed.append("host build engines vs the device build (not run)")
+    else:
+        s.phase("host build engines vs the device build", s.host_engines)
+        s.build_check = None
     s.phase("build kernels vs plain versions", s.build_kernels)
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "cammiq_tpu", "bench", "benchmarks"))

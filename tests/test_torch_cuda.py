@@ -548,6 +548,47 @@ def test_build_index_cuda_matches_cpu(cuda_device):
     assert want.doubly_index.num_entries > 0
 
 
+def _same_build(got, want):
+    for name in ("unique_index", "doubly_index"):
+        for f in ("key_words", "length", "rid1", "rid2", "ucount1", "ucount2",
+                  "table_lo", "table_hi", "table_start", "table_count"):
+            np.testing.assert_array_equal(getattr(getattr(got, name), f),
+                                          getattr(getattr(want, name), f))
+    np.testing.assert_array_equal(got.ulm_count_u, want.ulm_count_u)
+    np.testing.assert_array_equal(got.ulm_count_d, want.ulm_count_d)
+
+
+def test_build_index_cuda_stages_resume(cuda_device, tmp_path):
+    """The device build on the card writes the JAX engines' ``sa`` (int64
+    [n]) and ``lcp`` (int64 [n + 1]) stages and resumes from them."""
+    from cammiq_tpu_torch.index.staging import StageStore
+
+    corpus = pair_corpus(8, ng=6, glen=3000, seg=400)
+    cfg = BuildConfig(k=20, L=100, Lmax=40, h=20, mode="both")
+    want = build_index(corpus, cfg, device=cuda_device)
+    d = str(tmp_path / "stages")
+    first = build_index(corpus, cfg, device=cuda_device, stage_dir=d)
+    store = StageStore(d)
+    assert store.load("sa").dtype == np.int64 and store.load("lcp").shape == (corpus.n + 1,)
+    again = build_index(corpus, cfg, device=cuda_device, stage_dir=d)
+    for art in (first, again):
+        _same_build(art, want)
+
+
+@pytest.mark.parametrize("engine,bounded", [("native", True), ("native", False),
+                                            ("numpy", True)])
+def test_host_engines_match_cuda_build(cuda_device, engine, bounded):
+    """The host engines give the index of the device build on the card."""
+    from cammiq_tpu_torch import native
+
+    if engine == "native" and not native.has_bsort():
+        pytest.skip(f"native library not built: {native.build_error()}")
+    corpus = pair_corpus(8, ng=6, glen=3000, seg=400)
+    cfg = BuildConfig(k=20, L=100, Lmax=40, h=20, mode="both", bounded_sa=bounded)
+    _same_build(build_index(corpus, cfg, engine=engine),
+                build_index(corpus, cfg, device=cuda_device))
+
+
 def test_wrappers_reject_bad_inputs(cuda_device):
     codes = torch.zeros((4, 30), dtype=torch.int8, device=cuda_device)
     bloom = torch.zeros(1 << 10, dtype=torch.int32, device=cuda_device)

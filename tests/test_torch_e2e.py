@@ -13,6 +13,7 @@ import torch
 from cammiq_tpu.cli import main as jax_cli_main
 from cammiq_tpu.models.output import parse_quant_output
 from cammiq_tpu.tools.simulate import simulate
+from cammiq_tpu_torch import native as port_native
 from cammiq_tpu_torch.cli import main as cli_main
 from torch_fixture import ALPHA, pair_genomes
 
@@ -93,18 +94,13 @@ def test_cuda_without_card_raises(toy):
 def test_unported_modes_raise(toy, tmp_path, monkeypatch):
     """The distributed query is ported: ``-t 2`` no longer raises, and with
     no launcher it runs the single-device session (test_torch_dist.py runs
-    it over ranks).  The host distributed build, the one mode still not
-    ported, raises before it writes anything."""
+    it over ranks).  The cross-host build is ported too
+    (``test_build_hosts_raises``)."""
     root, args = toy
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     cli_main(["--device", "cpu", "--query", "--read_cnts", "-t", "2", *args,
               "-o", str(root / "t.out")])
     assert (root / "t.out").read_text().startswith("QUERY/TAXID")
-    with pytest.raises(NotImplementedError, match="build_hosts"):
-        cli_main(["--device", "cpu", "--build", "--unique", "-f", args[1],
-                  "-D", str(root / "fasta") + "/", "--build_hosts", "2",
-                  "-i", str(tmp_path / "u.npz")])
-    assert not any(tmp_path.iterdir())
 
 
 def _npz_arrays(path):
@@ -112,29 +108,34 @@ def _npz_arrays(path):
         return {k: (z[k].dtype.str, z[k].shape, z[k].tobytes()) for k in z.files}
 
 
-@pytest.mark.parametrize("engine", [None, "numpy"])
-def test_build_cli_any_engine_matches_jax_cli(toy, engine):
-    """``--build`` runs the port's build on ``--device`` whatever
-    ``--engine`` says, in a child process that loads nothing of the JAX
-    package, and writes the tables (every array, byte for byte) and the
-    meta files of ``cammiq_tpu.cli --build``."""
-    root, args = toy
-    mapf, db = args[1], str(root / "fasta") + "/"
-    ours, ref = root / f"cli_{engine}", root / f"cli_ref_{engine}"
-    flags = [*BUILD_FLAGS, "-f", mapf, "-D", db]
-    argv = ["--device", "cpu", "--build", *flags, "-i", str(ours / "index_u.npz"),
-            str(ours / "index_d.npz")] + (["--engine", engine] if engine else [])
-    code = ("import sys; from cammiq_tpu_torch.cli import main; "
-            f"main({argv!r}); "
-            "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('cammiq_tpu', 'jax')]; assert not bad, bad")
-    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+def _run_child(code, tmp_path, jax=False):
+    """Run ``code`` in a child process (its own TMPDIR under ``tmp_path``);
+    a JAX child is held to the CPU, as tests/conftest.py holds this one."""
+    if jax:
+        code = "import jax; jax.config.update('jax_platforms', 'cpu'); " + code
+    tmp = tmp_path / "tmp"
+    tmp.mkdir(exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1", TMPDIR=str(tmp),
+               JAX_PLATFORMS="cpu")
     r = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
-    assert "Time for computing suffix array" in r.stderr
-    jax_cli_main(["--build", *flags, "-i", str(ref / "index_u.npz"),
-                  str(ref / "index_d.npz"), "--engine", "numpy"])
+    return r.stderr
+
+
+def _port_cli_child(argv, tmp_path, host=False):
+    """The port's CLI in a child process that must load nothing of the JAX
+    package, and on a host build (``host``) not torch either; returns its
+    stderr."""
+    banned = ("cammiq_tpu", "jax") + (("torch",) if host else ())
+    return _run_child(
+        "import sys; from cammiq_tpu_torch.cli import main; "
+        f"main({argv!r}); "
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{banned!r}]; assert not bad, bad", tmp_path)
+
+
+def _assert_same_build_files(ours, ref):
     for name in ("index_u.npz", "index_d.npz"):
         got, want = _npz_arrays(ours / name), _npz_arrays(ref / name)
         assert got == want, name
@@ -143,13 +144,56 @@ def test_build_cli_any_engine_matches_jax_cli(toy, engine):
         assert (ours / name).read_bytes() == (ref / name).read_bytes(), name
 
 
-def test_build_hosts_raises(toy, tmp_path):
+@pytest.mark.parametrize("engine", [None, "numpy", "native", "jax"])
+def test_build_cli_any_engine_matches_jax_cli(toy, tmp_path, engine):
+    """``--build`` in a child process that loads nothing of the JAX package:
+    ``--engine native|numpy`` runs the port's host engine, the default
+    (``auto``) and ``jax`` the device build on ``--device``; each writes
+    the tables (every array, byte for byte) and the meta files of
+    ``cammiq_tpu.cli --build``, with the same host engine, or ``numpy``
+    for the device build (a full sort, as the device's).  A host build
+    loads no torch."""
     root, args = toy
-    with pytest.raises(NotImplementedError, match="build_hosts"):
-        cli_main(["--device", "cpu", "--build", *BUILD_FLAGS, "-f", args[1],
-                  "-D", str(root / "fasta") + "/", "--build_hosts", "2",
-                  "-i", str(tmp_path / "u.npz"), str(tmp_path / "d.npz")])
-    assert not any(tmp_path.iterdir())
+    mapf, db = args[1], str(root / "fasta") + "/"
+    ours, ref = root / f"cli_{engine}", root / f"cli_ref_{engine}"
+    flags = [*BUILD_FLAGS, "-f", mapf, "-D", db]
+    argv = ["--device", "cpu", "--build", *flags, "-i", str(ours / "index_u.npz"),
+            str(ours / "index_d.npz")] + (["--engine", engine] if engine else [])
+    err = _port_cli_child(argv, tmp_path, host=engine in ("native", "numpy"))
+    assert "Time for computing suffix array" in err
+    line = {None: "device (cpu)", "jax": "device (cpu)", "numpy": "numpy, host",
+            "native": "native bounded sort, host"}[engine]
+    if engine == "native" and not port_native.has_bsort():
+        line = "numpy (native library unavailable"
+    assert f"build engine: {line}" in err
+    jargv = ["--build", *flags, "-i", str(ref / "index_u.npz"), str(ref / "index_d.npz"),
+             "--engine", engine if engine in ("native", "numpy") else "numpy"]
+    # the JAX native engine in a child of its own: this process may hold a
+    # library it found half-built at collection
+    _run_child(f"from cammiq_tpu.cli import main; main({jargv!r})", tmp_path, jax=True)
+    _assert_same_build_files(ours, ref)
+
+
+def test_build_hosts_raises(toy, tmp_path):
+    """``--build --build_hosts 2`` no longer raises: it runs the cross-host
+    build from a streamed corpus, in a child process that loads nothing of
+    the JAX package, and writes the tables (array for array) and meta files
+    of ``cammiq_tpu.cli --build --build_hosts 2``; it loads no torch and
+    leaves no work directory behind."""
+    if not port_native.has_bsort():
+        pytest.skip("port native bounded sort not built")
+    root, args = toy
+    ours, ref = tmp_path / "ours", tmp_path / "ref"
+    flags = ["--build", *BUILD_FLAGS, "-f", args[1], "-D", str(root / "fasta") + "/",
+             "--build_hosts", "2"]
+    err = _port_cli_child(["--device", "cpu", *flags, "-i", str(ours / "index_u.npz"),
+                           str(ours / "index_d.npz")], tmp_path, host=True)
+    assert "build engine: cross-host, 2 slices" in err
+    assert "[dist-build] p4_select: peak RSS MB per worker" in err
+    assert not any((tmp_path / "tmp").iterdir())
+    jargv = [*flags, "-i", str(ref / "index_u.npz"), str(ref / "index_d.npz")]
+    _run_child(f"from cammiq_tpu.cli import main; main({jargv!r})", tmp_path, jax=True)
+    _assert_same_build_files(ours, ref)
 
 
 @pytest.fixture(scope="module")

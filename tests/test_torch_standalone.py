@@ -4,6 +4,7 @@ numpy-seeded inputs (bit-identical arrays, identical files)."""
 
 import ast
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -18,6 +19,9 @@ import bench
 import cammiq_tpu.cli as jcli
 import cammiq_tpu.config as jcfg
 import cammiq_tpu.index.artifact as jart
+import cammiq_tpu.index.chunked as jck
+import cammiq_tpu.index.staging as jstage
+import cammiq_tpu.index.unique as juq
 import cammiq_tpu.index.sparsify as jsp
 import cammiq_tpu.index.table as jtab
 import cammiq_tpu.io.fasta as jfasta
@@ -26,6 +30,9 @@ import cammiq_tpu.io.mapfile as jmap
 import cammiq_tpu.models.ident as jident
 import cammiq_tpu.models.output as jout
 import cammiq_tpu.models.quant as jquant
+import cammiq_tpu.ops.lcp as jlcp
+import cammiq_tpu.ops.sa as jsa
+import cammiq_tpu.ops.scans as jscans
 import cammiq_tpu.parallel.dist_query as jdq
 import cammiq_tpu.query.pipeline as jpipe
 import cammiq_tpu.query.sortjoin as jsj
@@ -33,6 +40,9 @@ import cammiq_tpu.tools.simulate as jsim
 import cammiq_tpu_torch.cli as tcli
 import cammiq_tpu_torch.config as tcfg
 import cammiq_tpu_torch.index.artifact as tart
+import cammiq_tpu_torch.index.chunked as tck
+import cammiq_tpu_torch.index.staging as tstage
+import cammiq_tpu_torch.index.unique_host as tuq
 import cammiq_tpu_torch.index.sparsify as tsp
 import cammiq_tpu_torch.index.table as ttab
 import cammiq_tpu_torch.io.fasta as tfasta
@@ -41,6 +51,9 @@ import cammiq_tpu_torch.io.mapfile as tmap
 import cammiq_tpu_torch.models.ident as tident
 import cammiq_tpu_torch.models.output as tout
 import cammiq_tpu_torch.models.quant as tquant
+import cammiq_tpu_torch.ops.lcp_host as tlcp
+import cammiq_tpu_torch.ops.sa_host as tsa
+import cammiq_tpu_torch.ops.scans_host as tscans
 import cammiq_tpu_torch.parallel.dist_query as tdq
 import cammiq_tpu_torch.query.merged as tmerged
 import cammiq_tpu_torch.query.pipeline as tpipe
@@ -198,6 +211,23 @@ def test_corpus_matches(fasta_db):
         np.testing.assert_array_equal(got.genome_lengths(), want.genome_lengths())
 
 
+def test_streaming_corpus_matches(fasta_db, tmp_path):
+    """``build_corpus_streaming`` (the cross-host build's corpus, streamed to
+    a file and memmapped) against its source: the same bytes on disk, the
+    same tables, and the in-memory corpus's text."""
+    _, files, _ = fasta_db
+    got = tfasta.build_corpus_streaming(files, str(tmp_path / "t.bin"))
+    want = jfasta.build_corpus_streaming(files, str(tmp_path / "j.bin"))
+    assert isinstance(got.seq, np.memmap)
+    assert (tmp_path / "t.bin").read_bytes() == (tmp_path / "j.bin").read_bytes()
+    for other in (want, jfasta.build_corpus(files)):
+        np.testing.assert_array_equal(np.asarray(got.seq), np.asarray(other.seq))
+        for f in CORPUS_FIELDS[1:]:
+            np.testing.assert_array_equal(getattr(got, f), getattr(other, f))
+            assert getattr(got, f).dtype == getattr(other, f).dtype
+        assert got.filenames == other.filenames
+
+
 def test_map_file_and_genome_lengths_match(fasta_db, tmp_path):
     root, _, _ = fasta_db
     for fn, rows in (("genome_lengths.out", "1\t700\n2\t1050\n3\t800\n1\t701\n"),
@@ -250,6 +280,151 @@ def test_reads_from_arrays_matches():
     got, want = tfastq.reads_from_arrays(seqs, 96), jfastq.reads_from_arrays(seqs, 96)
     np.testing.assert_array_equal(got.codes, want.codes)
     np.testing.assert_array_equal(got.lengths, want.lengths)
+
+
+# ---- host build twins: ops/*_host.py, index/unique_host.py, staging, chunked
+
+def _texts():
+    rng = np.random.default_rng(12)
+    gs, _ = pair_genomes(13, ng=3, glen=300, seg=80)
+    corpus = tfasta.corpus_from_sequences([[ALPHA[x].tobytes()] for x in gs])
+    return [np.zeros(0, np.uint8), np.array([7], np.uint8),
+            np.tile(np.array([1, 2, 3], np.uint8), 40),
+            rng.integers(0, 4, 2000).astype(np.uint8) + 230, corpus.seq]
+
+
+@pytest.mark.parametrize("i", range(5))
+def test_host_sa_and_lcp_match(i):
+    """``ops/sa_host.py`` and ``ops/lcp_host.py`` against ``ops/sa.py`` and
+    ``ops/lcp.py``: the suffix array, its inverse, both LCP engines, with
+    and without a clamp."""
+    s = _texts()[i]
+    sa = tsa.suffix_array_numpy(s)
+    np.testing.assert_array_equal(sa, jsa.suffix_array_numpy(s))
+    assert sa.dtype == np.int64
+    np.testing.assert_array_equal(tsa.inverse_permutation(sa), jsa.inverse_permutation(sa))
+    for clamp in (tlcp.LCP_CLAMP, 3):
+        got = tlcp.lcp_from_sa_numpy(s, sa, clamp)
+        np.testing.assert_array_equal(got, jlcp.lcp_from_sa_numpy(s, sa, clamp))
+        np.testing.assert_array_equal(tlcp.lcp_kasai_scalar(s, sa, clamp), got)
+    assert tlcp.LCP_CLAMP == jlcp.LCP_CLAMP
+
+
+def _random_stages(seed, n=3000, ngen=6):
+    """test_chunked.py's random (gsa, lcp, sa): runs of equal genome ids,
+    random LCPs, a random permutation."""
+    rng = np.random.default_rng(seed)
+    gsa = np.repeat(rng.integers(1, ngen + 1, n).astype(np.int64),
+                    rng.integers(1, 5, n))[:n]
+    lcp = rng.integers(0, 40, n + 1).astype(np.int64)
+    lcp[0] = lcp[n] = 0
+    return rng, gsa, lcp, rng.permutation(n).astype(np.int64)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_host_scans_and_unique_match(seed):
+    """``ops/scans_host.py`` and every stage of ``index/unique_host.py``
+    against their sources on the same random inputs."""
+    rng, gsa, lcp, sa = _random_stages(seed)
+    n = gsa.shape[0]
+    v = rng.integers(0, 100, n).astype(np.int64)
+    starts = rng.random(n) < 0.2
+    starts[0] = True
+    for f in ("segment_starts_to_ids", "start_index", "end_index"):
+        np.testing.assert_array_equal(getattr(tscans, f)(starts), getattr(jscans, f)(starts))
+    for f in ("segmented_cummin", "segmented_cummin_rev"):
+        np.testing.assert_array_equal(getattr(tscans, f)(v, starts),
+                                      getattr(jscans, f)(v, starts))
+    ref_pos = np.concatenate([np.sort(rng.choice(np.arange(1, n), 4, replace=False)),
+                              [n]]).astype(np.uint64)
+    np.testing.assert_array_equal(
+        tuq.compute_gsa(sa, ref_pos, np.arange(1, 6, dtype=np.uint32)),
+        juq.compute_gsa(sa, ref_pos, np.arange(1, 6, dtype=np.uint32)))
+    for a, b in zip(tuq.run_info(gsa), juq.run_info(gsa)):
+        np.testing.assert_array_equal(a, b)
+    el, ulmax = 4, 30
+    l0 = tuq.unique_lcp0(gsa, lcp, el)
+    np.testing.assert_array_equal(l0, juq.unique_lcp0(gsa, lcp, el))
+    d, jd = tuq.doubly_lcp0(sa, gsa, lcp, el, ulmax), juq.doubly_lcp0(sa, gsa, lcp, el, ulmax)
+    for a, b in zip(d, jd):
+        np.testing.assert_array_equal(a, b)
+    for wrap in (False, True):
+        np.testing.assert_array_equal(tuq.occ_unique(sa, gsa, lcp, l0, wrap_u8=wrap),
+                                      juq.occ_unique(sa, gsa, lcp, l0, wrap_u8=wrap))
+        for a, b in zip(tuq.occ_doubly(sa, gsa, d.gsa2, lcp, d.lcp0, ulmax, wrap_u8=wrap),
+                        juq.occ_doubly(sa, gsa, d.gsa2, lcp, d.lcp0, ulmax, wrap_u8=wrap)):
+            np.testing.assert_array_equal(a, b)
+    for kw in ({}, {"ulmax": ulmax}):
+        lz = d.lcp0 if kw else l0
+        np.testing.assert_array_equal(tuq.min_unique(sa, lz, n, **kw),
+                                      juq.min_unique(sa, lz, n, **kw))
+    assert (tuq.MU_EMPTY, tuq.OCC_SATURATE) == (juq.MU_EMPTY, juq.OCC_SATURATE)
+    assert tuq.DoublyResult._fields == juq.DoublyResult._fields
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_stage_store_read_by_both(tmp_path, writer):
+    """One package's ``StageStore`` writes a directory, both read it
+    (memmapped and in memory), and ``staged`` resumes from it."""
+    rng = np.random.default_rng(14)
+    arrays = {"sa": rng.permutation(500).astype(np.int64),
+              "lcp16": rng.integers(0, 60000, 501).astype(np.uint16),
+              "bsa136": rng.integers(0, 9, (7, 3)).astype(np.int32)}
+    w = (tstage if writer == "port" else jstage).StageStore(str(tmp_path))
+    for k, a in arrays.items():
+        w.save(k, a)
+    w.delete("bsa136")
+    assert sorted(os.listdir(tmp_path)) == ["lcp16.bin", "manifest.json", "sa.bin"]
+    for mod in (tstage, jstage):
+        r = mod.StageStore(str(tmp_path))
+        assert r.has("sa") and r.has("lcp16") and not r.has("bsa136")
+        for k in ("sa", "lcp16"):
+            for mmap in (True, False):
+                got = r.load(k, mmap=mmap)
+                np.testing.assert_array_equal(got, arrays[k])
+                assert got.dtype == arrays[k].dtype
+        got = mod.staged(r, "sa", lambda: pytest.fail("recomputed a stored stage"))
+        np.testing.assert_array_equal(got, arrays["sa"])
+        assert mod.staged(None, "x", lambda: 5) == 5
+    assert (tmp_path / "manifest.json").read_text() == json.dumps(
+        {k: {"dtype": str(arrays[k].dtype), "shape": list(arrays[k].shape)}
+         for k in ("sa", "lcp16")})
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_chunked_sweeps_match(tmp_path, seed):
+    """``index/chunked.py`` against its source over random (gsa, lcp,
+    chunking), as test_chunked.py draws them: every file the three passes
+    write is byte-identical, the run counts equal, and LCP0 equals the
+    monolithic engine's."""
+    rng, gsa, lcp, sa = _random_stages(seed, n=5000)
+    n, nchunks, el, ulmax = 5000, 7, 4, 30
+    cuts = np.concatenate([[0], np.sort(rng.choice(np.arange(1, n), nchunks - 1,
+                                                   replace=False)), [n]])
+    text_cuts = np.array([0, n // 3, n], np.int64)
+    end_excl = int(np.nonzero(np.concatenate([gsa[1:] != gsa[:-1], [True]]))[0][0])
+    runs = {}
+    for name, ck in (("port", tck), ("jax", jck)):
+        wd = tmp_path / name
+        wd.mkdir()
+        for c in range(nchunks):
+            a, b = cuts[c], cuts[c + 1]
+            for f, arr in (("gid", gsa[a:b]), ("lcp", lcp[a:b]), ("pos", sa[a:b])):
+                np.save(wd / f"ch{c:04d}_{f}.npy", arr)
+        runs[name] = ck.forward_pass(str(wd), nchunks)
+        ck.backward_pass(str(wd), nchunks, runs[name], el, ulmax, "both")
+        ck.occ_emit_pass(str(wd), nchunks, n, ulmax, "both", text_cuts, end_excl)
+    assert runs["port"] == runs["jax"] == juq.run_info(gsa).nruns
+    names = sorted(p.name for p in (tmp_path / "jax").iterdir())
+    assert sorted(p.name for p in (tmp_path / "port").iterdir()) == names
+    assert len(names) > nchunks * 12
+    for nm in names:
+        assert (tmp_path / "port" / nm).read_bytes() == \
+            (tmp_path / "jax" / nm).read_bytes(), nm
+    lcp0u = np.concatenate([np.load(tmp_path / "port" / f"ch{c:04d}_lcp0u.npy")
+                            for c in range(nchunks)])
+    np.testing.assert_array_equal(lcp0u, juq.unique_lcp0(gsa, lcp, el))
+    assert tck.HALO == jck.HALO
 
 
 # ---- index build: selection, flat tables, merged index, artifact

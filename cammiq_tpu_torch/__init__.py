@@ -43,8 +43,18 @@ None of these imports torch, so the cross-host build's worker processes
 load numpy only.  The other host code the port needs is copied from the
 JAX package too, module by module at the same place in the tree, each copy
 naming its source in its docstring: config.py, io/, utils/timing.py,
-ops/packing.py, index/{sparsify,table,artifact}.py, query/merged.py (the
+ops/packing.py, index/{sparsify,table,artifact}.py (artifact.py with
+ensure_cuckoo and its command), index/refcompat.py (the reference
+binary's .bin1/.bin2 index files, read and written), query/merged.py (the
 numpy builders of the merged index), models/{ident,output}.py and the
 problem builder of models/quant.py, the CLI's parser, tools/simulate.py,
-and tools/benchdata.py (the bench's genome generator and read sampler).
+tools/{preprocess,download}.py (the genome-database tools that write
+genome_map.out), tools/benchdata.py (the bench's genome generator and
+read sampler), and version.py.  With them the port does everything the
+JAX package does; only utils/jitcache.py, JAX's compilation cache, has no
+counterpart.
 """
+
+from .version import __version__
+
+__all__ = ["__version__"]

@@ -1,5 +1,7 @@
 """Sharded, streamed merged-index artifact: a copy of
-``cammiq_tpu/index/artifact.py`` (save, load and ``prepare_merged``).
+``cammiq_tpu/index/artifact.py`` (save, load, ``ensure_cuckoo``,
+``prepare_merged`` and its command,
+``python -m cammiq_tpu_torch.index.artifact -i idx_u.npz [idx_d.npz] -o DIR``).
 
 The durable .npz FlatIndex pair (table.py) keeps the reference's two-file
 contract (src/hashtrie.cpp:595-699 streams one compact trie per table), but
@@ -22,7 +24,8 @@ Layout (all arrays little-endian, memmap-able):
   brec.npy         int32  [NB, 2]    bucket (entry start, count)
   bloom.npy        uint32 [2^bloom_log]      probe prefilter (r4+)
   cuckoo.npy       uint32 [2^cuckoo_log, 12] span table (r5+; see
-                   merged._build_cuckoo)
+                   merged._build_cuckoo — ensure_cuckoo upgrades older
+                   artifacts in place)
   orig_length.npy  int32  [eu+ed]    original-entry-order payloads the
   orig_rid1.npy    int32  [eu+ed]    quant/ident solvers need (rcounts are
   orig_rid2.npy    int32  [eu+ed]    indexed by original entry id)
@@ -162,6 +165,27 @@ class MergedArtifact:
              if self.ed else None)
         return u, d
 
+    def to_merged_index(self):
+        """Reconstruct a full (host-view) MergedIndex; slices of memmaps,
+        nothing copied until touched."""
+        from ..query.merged import MergedIndex, _build_directory
+
+        ds, db, steps = _build_directory(np.asarray(self.pref_lo))
+        kw = self.kw
+        tail = self.erec[:, kw]
+        return MergedIndex(
+            h=self.h, kw=kw, eu=self.eu, ed=self.ed,
+            max_bucket=self.max_bucket, n_colors=self.n_colors,
+            key_words=self.erec[:, :kw],
+            length=(tail & np.uint32(0xFFFF)).astype(np.int32),
+            rid1=self.prec[:, 1], rid2=self.prec[:, 2],
+            gid=self.prec[:, 0],
+            color=(tail >> np.uint32(16)).astype(np.int32),
+            pref_lo=self.pref_lo, pref_hi=self.pref_hi,
+            bucket_start=self.brec[:, 0], bucket_count=self.brec[:, 1],
+            dir_start=ds, dir_bits=db, dir_span_steps=steps,
+        )
+
 
 def load_merged_artifact(path: str) -> MergedArtifact:
     with open(os.path.join(path, "meta.json")) as f:
@@ -191,6 +215,34 @@ def load_merged_artifact(path: str) -> MergedArtifact:
         cuckoo=mm("cuckoo") if has_cuckoo else None,
         cuckoo_log=meta.get("cuckoo_log", 0) if has_cuckoo else 0,
     )
+
+
+def ensure_cuckoo(path: str, verbose: bool = False) -> bool:
+    """Upgrade a pre-r5 artifact in place: compute + persist the cuckoo
+    span table from its bucket arrays.  Returns True if written, False if
+    the artifact already had one."""
+    import sys
+    import time
+
+    with open(os.path.join(path, "meta.json")) as f:
+        meta = json.load(f)
+    if meta.get("cuckoo_log", 0) and os.path.exists(
+            os.path.join(path, "cuckoo.npy")):
+        return False
+    from ..query.merged import _build_cuckoo
+
+    t0 = time.time()
+    pref_lo = np.load(os.path.join(path, "pref_lo.npy"), mmap_mode="r")
+    brec = np.load(os.path.join(path, "brec.npy"), mmap_mode="r")
+    tab, tlog = _build_cuckoo(np.asarray(pref_lo), brec[:, 0], brec[:, 1])
+    _write(os.path.join(path, "cuckoo.npy"), tab)
+    meta["cuckoo_log"] = int(tlog)
+    with open(os.path.join(path, "meta.json"), "w") as f:
+        json.dump(meta, f, indent=1)
+    if verbose:
+        print(f"ensure_cuckoo: {path}: 2^{tlog} rows in "
+              f"{time.time() - t0:.1f}s", file=sys.stderr)
+    return True
 
 
 def prepare_merged(fi_u: str, fi_d: Optional[str], out: str,
@@ -228,3 +280,22 @@ def prepare_merged(fi_u: str, fi_d: Optional[str], out: str,
             f"max_bucket={m.max_bucket}, n_colors={m.n_colors})",
             file=sys.stderr,
         )
+
+
+def main(argv=None) -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        description="Precompute the merged query index from a FlatIndex "
+        ".npz pair (query sessions then start with a lazy load)")
+    ap.add_argument("-i", "--index", nargs="+", required=True,
+                    help="idx_u.npz [idx_d.npz]")
+    ap.add_argument("-o", "--out", required=True, help="output directory")
+    args = ap.parse_args(argv)
+    fi_u = args.index[0]
+    fi_d = args.index[1] if len(args.index) > 1 else None
+    prepare_merged(fi_u, fi_d, args.out, verbose=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,7 @@
 """DNA symbol tables and 2-bit packing (numpy host side): a copy of
 ``cammiq_tpu/ops/packing.py``, the tables and bit tricks the port's host
-code calls (corpus, reads, flat tables, merged index, bench generator).
+code calls (corpus, reads, flat tables, merged index, bench generator,
+reference-format import).
 
 Byte-level parity with the reference corpus layout:
 - genome bases are stored as ASCII + 165 (mod 256) bytes
@@ -41,6 +42,9 @@ for _a, _b in ((ord("A"), ord("T")), (ord("C"), ord("G")),
     RC_IDX[_a] = _b
 RC_IDX[ord("T")] = ord("A")
 RC_IDX[ord("G")] = ord("C")
+
+ALPHABET = np.frombuffer(b"ACGT", dtype=np.uint8)
+
 
 def rev2bit_u32(x: np.ndarray) -> np.ndarray:
     """Reverse the 16 2-bit groups within each uint32.

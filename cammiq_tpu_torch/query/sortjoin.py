@@ -95,7 +95,12 @@ class TorchMergedIndex:
     def from_artifact(cls, a, device) -> "TorchMergedIndex":
         """From a ``MergedArtifact``: memmapped arrays go straight to the
         device.  A missing bloom or cuckoo table is built in memory; the
-        artifact is never written."""
+        artifact is never written.  The cuckoo build of a pre-cuckoo
+        artifact (tens of seconds at a production index) is then paid at
+        every session start: ``index/artifact.py:ensure_cuckoo`` persists
+        the table once.  The JAX session falls back to its directory join
+        there instead; this port has no directory join, and the table it
+        builds gives the same counts."""
         if a.bloom is not None:
             bloom, blog = np.asarray(a.bloom), a.bloom_log
         else:

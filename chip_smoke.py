@@ -98,7 +98,25 @@ nothing of JAX or of the JAX package, and exits nonzero if any phase fails:
    counts and meta files identical, the first_of_run, lcp_pairs and
    occ_count launches of phase 11's cuda build required; stage seconds
    beside the cuda build's and the cross-host build's peak RSS per worker
-   printed (run after phase 11, before phase 12).
+   printed (run after phase 11, before phase 12);
+14. index formats on the card (last): (a) the bench generator at
+   DIST_GENOMES genomes built on cuda (k=26 L=100 Lmax=50 h=26), both
+   tables written in the reference's .bin1/.bin2 format and read back
+   (index/refcompat.py; seconds of the host's bit loop printed), entry
+   sets equal; QuerySession on cuda from the imported and the original
+   pair, both engines, REF_BATCHES batches in quant and sc mode: counts,
+   pair counts and rcounts by entry key equal, every query kernel
+   launched (counters zeroed before, read after), one batch through the
+   plain versions (cpu) equal; (b) phase 10's toy with pairs through the
+   format: its Type-II pair counts and file on cuda equal the original's;
+   (c) a copy of phase 2's artifact without its cuckoo table (arrays
+   symlinked, meta.json with cuckoo_log 0): session start, ensure_cuckoo
+   (True, then False; the table equal to phase 2's), session start again,
+   each session's quant pass equal to phase 5's counts; (d) the command
+   python -m cammiq_tpu_torch.index.artifact on phase 2's npz pair, every
+   file equal to phase 2's artifact (a child process started before phase
+   12, whose device work its host work overlaps, and waited for before (c)
+   so that (c)'s times have the host to themselves).
 
 Every kernel time is printed beside its bound and its device-only time
 (CUDA events around calls queued behind a sleep kernel, so they run back
@@ -175,7 +193,11 @@ PATH_KERNELS = {
     "gather": ("gather_probe",),
     "gather_grid": ("gather_probe",),
     "gather_shards": ("gather_probe",),
+    "refcompat": ("first_of_run", "probe_bloom", "cuckoo_verify", "gather_probe"),
 }
+# phase 14: read batches on the reference-format index, and the engines
+REF_BATCHES = 4
+ENGINES = ("sortjoin", "gather")
 INDEX_FIELDS = ("key_words", "length", "rid1", "rid2", "ucount1", "ucount2",
                 "table_lo", "table_hi", "table_start", "table_count")
 INDEX_STATICS = ("h", "kw", "max_probes", "max_bucket", "is_doubly")
@@ -532,6 +554,35 @@ def assert_same_artifacts(got, want, what: str) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def sample_reads(genomes, batches: int, seed: int):
+    """A ReadSet of ``batches`` batches of BATCH reads from the bench
+    generator's read sampler."""
+    import numpy as np
+
+    from cammiq_tpu_torch.io.fastq import ReadSet
+    from cammiq_tpu_torch.tools.benchdata import sample_read_batch
+
+    rng = np.random.default_rng(seed)
+    parts = [sample_read_batch(rng, genomes, BATCH) for _ in range(batches)]
+    codes = np.concatenate([p[0] for p in parts])
+    lengths = np.concatenate([p[1] for p in parts])
+    return ReadSet(codes=codes, lengths=lengths, total_len=int(lengths.sum()),
+                   name="bench")
+
+
+def entry_rows(ix, values=None):
+    """A table's entries as sorted int64 rows (key words, length, then
+    rid1, rid2, ucount1, ucount2, or ``values`` by entry id): equal for
+    two tables that hold the same entries in any order."""
+    import numpy as np
+
+    cols = [np.asarray(ix.key_words, np.int64), np.asarray(ix.length, np.int64)[:, None]]
+    cols += [np.asarray(c, np.int64)[:, None] for c in
+             ((ix.rid1, ix.rid2, ix.ucount1, ix.ucount2) if values is None else (values,))]
+    rows = np.concatenate(cols, 1)
+    return rows[np.lexsort(rows.T[::-1])]
+
+
 def cpu_model() -> str:
     """The host CPU's model name (/proc/cpuinfo, else lscpu), and the
     machine's architecture."""
@@ -650,6 +701,9 @@ class Smoke:
         self.failed = []
         self.results = {}
         self.kernels = {}
+        self.quant_counts = None
+        self.toy_pairs = None
+        self.artifact_cmd = None
 
     def phase(self, name, fn, *args):
         log(f"== {name}")
@@ -782,19 +836,10 @@ class Smoke:
         return mdir
 
     def reads(self):
-        import numpy as np
-
-        from cammiq_tpu_torch.io.fastq import ReadSet
         from cammiq_tpu_torch.tools.benchdata import (BENCH_GENOMES, BENCH_GLEN,
-                                                      gen_genomes, sample_read_batch)
+                                                      gen_genomes)
 
-        genomes = gen_genomes(BENCH_GENOMES, BENCH_GLEN)
-        rng = np.random.default_rng(1)
-        parts = [sample_read_batch(rng, genomes, BATCH) for _ in range(N_BATCHES)]
-        codes = np.concatenate([p[0] for p in parts])
-        lengths = np.concatenate([p[1] for p in parts])
-        return ReadSet(codes=codes, lengths=lengths,
-                       total_len=int(lengths.sum()), name="bench")
+        return sample_reads(gen_genomes(BENCH_GENOMES, BENCH_GLEN), N_BATCHES, 1)
 
     def session(self, mdir):
         import torch
@@ -1200,8 +1245,12 @@ class Smoke:
                 raise AssertionError("Type-II output differs between cuda and cpu")
             self.results["toy_pair_counts"] = {f"{a},{b}": c for (a, b), c in pc.items()}
             torch.cuda.synchronize()
+            # phase 14 round-trips this index through the reference format
+            self.toy_pairs = {"root": root, "mapf": mapf, "fq": fq, "iu": iu,
+                              "idd": idd, "pair_counts": pc, "type2": outs[DEV]}
         finally:
-            shutil.rmtree(root, ignore_errors=True)
+            if self.toy_pairs is None:
+                shutil.rmtree(root, ignore_errors=True)
 
     # ---- 11. the device build against the CPU build at a reduced size
     def build_vs_cpu(self):
@@ -1794,6 +1843,318 @@ class Smoke:
             f"{out['two_shard_launches']}): counts, rcounts and pairs equal the "
             f"single-device gather's")
 
+    # ---- 14. index formats on the card
+    def formats_reference(self):
+        """(a) The cuda build at DIST_GENOMES through the reference's
+        .bin1/.bin2 files and back, then queried on the card by both
+        engines against the original pair."""
+        import numpy as np
+
+        from cammiq_tpu_torch.config import BuildConfig, QueryConfig
+        from cammiq_tpu_torch.index.builder import build_index
+        from cammiq_tpu_torch.index.refcompat import (reference_index_to_flat,
+                                                      write_reference_index)
+        from cammiq_tpu_torch.io.fasta import corpus_from_sequences
+        from cammiq_tpu_torch.io.fastq import ReadSet
+        from cammiq_tpu_torch.query.pipeline import QuerySession
+        from cammiq_tpu_torch.tools.benchdata import BENCH_GLEN, gen_genomes
+
+        out = self.results.setdefault("index_formats", {})
+        genomes = gen_genomes(DIST_GENOMES, BENCH_GLEN)
+        t = time.time()
+        with contextlib.redirect_stderr(io.StringIO()):
+            art = build_index(corpus_from_sequences(genomes),
+                              BuildConfig(k=26, L=100, Lmax=50, h=26, mode="both"),
+                              device=DEV)
+        build_s = time.time() - t
+        orig = (art.unique_index, art.doubly_index)
+        root = tempfile.mkdtemp(prefix="smoke_refcompat_", dir=OUT_DIR)
+        try:
+            paths = [os.path.join(root, n) for n in ("index.bin1", "index.bin2")]
+            t = time.time()
+            for p, ix in zip(paths, orig):
+                write_reference_index(p, ix)
+            write_s = time.time() - t
+            nbytes = sum(os.path.getsize(p) + os.path.getsize(p + ".aux") for p in paths)
+            t = time.time()
+            imported = tuple(reference_index_to_flat(p, Lmax=50) for p in paths)
+            read_s = time.time() - t
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        for name, got, want in zip(("unique", "doubly"), imported, orig):
+            if not np.array_equal(entry_rows(got), entry_rows(want)):
+                raise AssertionError(f"reference-format round trip: {name} entries differ")
+        entries = [ix.num_entries for ix in orig]
+        log(f"cuda build of {DIST_GENOMES} genomes in {build_s:.1f} s, entries "
+            f"{entries}; reference format written in {write_s:.3f} s ({nbytes} B), "
+            f"read back in {read_s:.3f} s on the host ({cpu_model()}); entry "
+            f"sets equal")
+        reads = sample_reads(genomes, REF_BATCHES, 14)
+        G = DIST_GENOMES + 1
+        cfg = QueryConfig(h=26, erate=0.01, batch_size=BATCH)
+        sessions = {(e, src): QuerySession(*pair, G, cfg, device=DEV, engine=e)
+                    for e in ENGINES
+                    for src, pair in (("imported", imported), ("original", orig))}
+        zero_counts()
+        counts = {(key, mode): sess.run(reads, sc_mode=mode == "sc")
+                  for key, sess in sessions.items() for mode in ("quant", "sc")}
+        launches = read_counts("refcompat", self.results)
+        for e in ENGINES:
+            for mode in ("quant", "sc"):
+                got, want = (counts[(e, src), mode] for src in ("imported", "original"))
+                what = f"imported vs original pair, {e} {mode}"
+                for f in ("cnts_u", "cnts_d"):
+                    if not np.array_equal(getattr(got, f), getattr(want, f)):
+                        raise AssertionError(f"{what}: {f} differs")
+                if (got.nundet, got.nconf, got.pair_counts) != (
+                        want.nundet, want.nconf, want.pair_counts):
+                    raise AssertionError(f"{what}: nundet/nconf/pair counts differ")
+                if mode == "quant":
+                    for f, a, b in (("rcount_u", 0, 0), ("rcount_d", 1, 1)):
+                        if not np.array_equal(entry_rows(imported[a], getattr(got, f)),
+                                              entry_rows(orig[b], getattr(want, f))):
+                            raise AssertionError(f"{what}: {f} by entry key differs")
+        # one batch on the imported pair through the plain versions (cpu)
+        n1 = int(reads.lengths[:BATCH].sum())
+        one = ReadSet(codes=reads.codes[:BATCH], lengths=reads.lengths[:BATCH],
+                      total_len=n1, name="one batch")
+        for e in ENGINES:
+            got = sessions[e, "imported"].run(one)
+            want = QuerySession(*imported, G, cfg, device="cpu", engine=e).run(one)
+            for f in ("cnts_u", "cnts_d", "rcount_u", "rcount_d"):
+                if not np.array_equal(getattr(got, f), getattr(want, f)):
+                    raise AssertionError(f"imported pair, {e}: one batch, kernels vs "
+                                         f"plain versions: {f} differs")
+            if (got.nundet, got.nconf) != (want.nundet, want.nconf):
+                raise AssertionError(f"imported pair, {e}: one batch, kernels vs "
+                                     f"plain versions: nundet/nconf differ")
+        q = counts[("sortjoin", "imported"), "quant"]
+        sc = counts[("sortjoin", "imported"), "sc"]
+        out["reference"] = {
+            "genomes": DIST_GENOMES, "entries": entries, "bytes": nbytes,
+            "write_s": write_s, "read_s": read_s, "build_s": build_s,
+            "reads": reads.num_reads, "launches": launches,
+            "assigned": int(q.cnts_u.sum() + q.cnts_d.sum()),
+            "nundet": q.nundet, "nconf": q.nconf, "pairs_hit": len(sc.pair_counts)}
+        log(f"{reads.num_reads} reads on the imported and the original pair, both "
+            f"engines, quant and sc mode: counts, pair counts and rcounts by entry "
+            f"key equal ({out['reference']['assigned']} assigned, {q.nundet} "
+            f"undetermined, {q.nconf} conflicts, {len(sc.pair_counts)} pairs hit); "
+            f"one batch through the plain versions (cpu) equal; launches {launches}")
+
+    def formats_toy_pairs(self):
+        """(b) Phase 10's toy with pairs through the reference format: its
+        Type-II query on the card gives the original's pair counts and
+        ident file."""
+        import numpy as np
+
+        from cammiq_tpu_torch import cli
+        from cammiq_tpu_torch.config import QueryConfig
+        from cammiq_tpu_torch.index.refcompat import (reference_index_to_flat,
+                                                      write_reference_index)
+        from cammiq_tpu_torch.index.table import load_flat_index_pair, save_flat_index
+        from cammiq_tpu_torch.io.fastq import read_fastq
+        from cammiq_tpu_torch.query.pipeline import QuerySession
+
+        tp = self.toy_pairs
+        if tp is None:
+            raise RuntimeError("phase 10 kept no toy index")
+        try:
+            d = os.path.join(tp["root"], "refcompat")
+            os.makedirs(d)
+            imported = []
+            for ix, name, npz in zip(load_flat_index_pair(tp["iu"], tp["idd"]),
+                                     ("index.bin1", "index.bin2"),
+                                     ("index_u.npz", "index_d.npz")):
+                write_reference_index(os.path.join(d, name), ix)
+                back = reference_index_to_flat(os.path.join(d, name), Lmax=40)
+                if not np.array_equal(entry_rows(back), entry_rows(ix)):
+                    raise AssertionError(f"toy {name}: entries differ")
+                save_flat_index(os.path.join(d, npz), back)
+                imported.append(back)
+            for f in META_FILES:
+                shutil.copy(os.path.join(os.path.dirname(tp["iu"]), f), d)
+            pc = QuerySession(*imported, 6, QueryConfig(h=20), device=DEV).run(
+                read_fastq(tp["fq"]), sc_mode=True).pair_counts
+            if pc != tp["pair_counts"] or not pc:
+                raise AssertionError(f"toy pair counts {pc} != {tp['pair_counts']}")
+            out = os.path.join(tp["root"], "t2_imported.out")
+            cli.main(["--device", DEV, "--query", "--read_cnts", "--doubly_unique",
+                      "-f", tp["mapf"], "-i", os.path.join(d, "index_u.npz"),
+                      os.path.join(d, "index_d.npz"), "-q", tp["fq"], "-e", "0.01",
+                      "-o", out])
+            with open(out) as f:
+                t2 = f.read()
+            if t2 != tp["type2"]:
+                raise AssertionError("toy Type-II file differs on the imported index")
+            self.results.setdefault("index_formats", {})["toy_pairs"] = {
+                "entries": [ix.num_entries for ix in imported],
+                "pair_counts": {f"{a},{b}": c for (a, b), c in pc.items()}}
+            log(f"toy with pairs through the reference format (entries "
+                f"{[ix.num_entries for ix in imported]}): pair counts {pc} and the "
+                f"Type-II file equal the original index's")
+        finally:
+            shutil.rmtree(tp["root"], ignore_errors=True)
+            self.toy_pairs = None
+
+    def formats_pre_cuckoo(self, mdir, reads):
+        """(c) A copy of phase 2's artifact as one saved before the cuckoo
+        table: the session start that builds it in memory, ensure_cuckoo,
+        and the session start after the upgrade."""
+        import numpy as np
+        import torch
+
+        from cammiq_tpu_torch.config import QueryConfig
+        from cammiq_tpu_torch.index.artifact import ensure_cuckoo, load_merged_artifact
+        from cammiq_tpu_torch.query.pipeline import QuerySession
+
+        want = self.quant_counts
+        if want is None:
+            raise RuntimeError("phase 5 left no counts to compare with")
+        G = self.results["genomes"] + 1
+        pre = os.path.join(REPO, "bench_cache", "smoke_pre_cuckoo")
+        shutil.rmtree(pre, ignore_errors=True)
+        os.makedirs(pre)
+        # phase 2's arrays by symlink (ensure_cuckoo writes only cuckoo.npy,
+        # absent here, and this copy's meta.json)
+        for fn in os.listdir(mdir):
+            if fn not in ("cuckoo.npy", "meta.json"):
+                os.symlink(os.path.join(mdir, fn), os.path.join(pre, fn))
+        with open(os.path.join(mdir, "meta.json")) as f:
+            meta = json.load(f)
+        with open(os.path.join(pre, "meta.json"), "w") as f:
+            json.dump(dict(meta, cuckoo_log=0), f, indent=1)
+
+        def start():
+            torch.cuda.synchronize()
+            t = time.time()
+            art = load_merged_artifact(pre)
+            sess = QuerySession.from_artifact(
+                art, G, QueryConfig(h=art.h, erate=0.01, batch_size=BATCH), device=DEV)
+            torch.cuda.synchronize()
+            return art, sess, time.time() - t
+
+        def check(sess, what):
+            got = sess.run(reads)
+            for f in ("cnts_u", "cnts_d", "rcount_u", "rcount_d"):
+                if not np.array_equal(getattr(got, f), getattr(want, f)):
+                    raise AssertionError(f"{what}: {f} differs from phase 5")
+            if (got.nundet, got.nconf) != (want.nundet, want.nconf):
+                raise AssertionError(f"{what}: nundet/nconf differ from phase 5")
+
+        try:
+            art, sess, before_s = start()
+            if art.cuckoo is not None:
+                raise AssertionError("the pre-cuckoo copy has a cuckoo table")
+            check(sess, "pre-cuckoo session")
+            del art, sess
+            torch.cuda.empty_cache()
+            err = Tee(sys.stderr)
+            t = time.time()
+            with contextlib.redirect_stderr(err):
+                first = ensure_cuckoo(pre, verbose=True)
+            ensure_s = time.time() - t
+            second = ensure_cuckoo(pre)
+            if (first, second) != (True, False):
+                raise AssertionError(f"ensure_cuckoo returned {first}, then {second}")
+            a = np.load(os.path.join(pre, "cuckoo.npy"), mmap_mode="r")
+            b = np.load(os.path.join(mdir, "cuckoo.npy"), mmap_mode="r")
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                raise AssertionError("ensure_cuckoo's table differs from phase 2's")
+            rows = int(a.shape[0])
+            del a, b
+            with open(os.path.join(pre, "meta.json")) as f1, \
+                    open(os.path.join(mdir, "meta.json")) as f2:
+                if f1.read() != f2.read():
+                    raise AssertionError("ensure_cuckoo's meta.json differs from phase 2's")
+            art, sess, after_s = start()
+            if art.cuckoo is None:
+                raise AssertionError("the upgraded copy has no cuckoo table")
+            check(sess, "upgraded session")
+            del art, sess
+            torch.cuda.empty_cache()
+        finally:
+            shutil.rmtree(pre, ignore_errors=True)
+        self.results.setdefault("index_formats", {})["pre_cuckoo"] = {
+            "session_start_before_s": before_s, "ensure_cuckoo_s": ensure_s,
+            "session_start_after_s": after_s, "cuckoo_rows": rows,
+            "phase5_session_start_s": self.results.get("session_start_s")}
+        log(f"pre-cuckoo artifact at config #3 (host {cpu_model()}): session start "
+            f"{before_s:.3f} s (cuckoo table built in memory), ensure_cuckoo "
+            f"{ensure_s:.3f} s ({rows} rows, equal to phase 2's, meta.json "
+            f"equal; True then False), session start after the upgrade "
+            f"{after_s:.3f} s (phase 5: {self.results.get('session_start_s', 0):.3f} "
+            f"s); both sessions' quant pass equals phase 5's counts")
+
+    def start_artifact_command(self, mdir):
+        """Start (d)'s child process, ``python -m
+        cammiq_tpu_torch.index.artifact`` on phase 2's npz pair, so that its
+        host work overlaps phase 12's device work; ``formats_command``
+        waits for it and checks its output."""
+        cdir = os.path.dirname(mdir)
+        out = os.path.join(REPO, "bench_cache", "smoke_artifact_cmd")
+        shutil.rmtree(out, ignore_errors=True)
+        err = open(out + ".err", "w+")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "cammiq_tpu_torch.index.artifact", "-i",
+             os.path.join(cdir, "index_u.npz"), os.path.join(cdir, "index_d.npz"),
+             "-o", out],
+            cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+            stdout=subprocess.DEVNULL, stderr=err)
+        self.artifact_cmd = (proc, err, out, time.time())
+
+    def stop_artifact_command(self):
+        """Kill (d)'s child process if it still runs; remove its output."""
+        if self.artifact_cmd is None:
+            return
+        proc, err, out, _ = self.artifact_cmd
+        self.artifact_cmd = None
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+        err.close()
+        shutil.rmtree(out, ignore_errors=True)
+        os.remove(out + ".err")
+
+    def formats_command(self, mdir):
+        """(d) ``python -m cammiq_tpu_torch.index.artifact`` on phase 2's
+        npz pair (started before phase 12) writes phase 2's artifact."""
+        import numpy as np
+
+        if self.artifact_cmd is None:
+            raise RuntimeError("the artifact command was not started")
+        proc, err, out, t0 = self.artifact_cmd
+        try:
+            t = time.time()
+            rc = proc.wait(timeout=600)
+            waited_s, cmd_s = time.time() - t, time.time() - t0
+            err.seek(0)
+            stderr = err.read()
+            if rc:
+                raise RuntimeError(f"artifact command failed: {stderr[-3000:]}")
+            names = sorted(os.listdir(mdir))
+            if sorted(os.listdir(out)) != names:
+                raise AssertionError(f"artifact command files {sorted(os.listdir(out))} "
+                                     f"!= {names}")
+            for fn in names:
+                a, b = os.path.join(out, fn), os.path.join(mdir, fn)
+                if fn.endswith(".npy"):
+                    x, y = np.load(a, mmap_mode="r"), np.load(b, mmap_mode="r")
+                    same = x.dtype == y.dtype and np.array_equal(x, y)
+                else:
+                    with open(a, "rb") as f1, open(b, "rb") as f2:
+                        same = f1.read() == f2.read()
+                if not same:
+                    raise AssertionError(f"artifact command: {fn} differs from phase 2's")
+        finally:
+            self.stop_artifact_command()
+        self.results.setdefault("index_formats", {})["command"] = {
+            "wall_s": cmd_s, "waited_s": waited_s, "stderr": stderr.strip()}
+        log(f"python -m cammiq_tpu_torch.index.artifact on phase 2's npz pair "
+            f"(started before phase 12, ran beside it): exited within {cmd_s:.1f} s of "
+            f"its start, {waited_s:.1f} s of it waited for here; every file equal "
+            f"to phase 2's ({len(names)} files); {stderr.strip().splitlines()[-1]}")
+
     @staticmethod
     def check_gather(got: dict, counts, sc, what: str) -> None:
         import numpy as np
@@ -1882,7 +2243,26 @@ def main() -> int:
     else:
         s.phase("host build engines vs the device build", s.host_engines)
         s.build_check = None
-    s.phase("build kernels vs plain versions", s.build_kernels)
+    if mdir:
+        s.phase("index formats on the card (d): the artifact command, started",
+                s.start_artifact_command, mdir)
+    try:
+        s.phase("build kernels vs plain versions", s.build_kernels)
+        # ---- 14. index formats on the card
+        s.phase("index formats on the card (a): a reference-format index",
+                s.formats_reference)
+        s.phase("index formats on the card (b): the toy with pairs",
+                s.formats_toy_pairs)
+        # (d) ends before (c), whose session starts and cuckoo build it
+        # would otherwise share the host with
+        if mdir:
+            s.phase("index formats on the card (d): the artifact command",
+                    s.formats_command, mdir)
+        if mdir and reads:
+            s.phase("index formats on the card (c): a pre-cuckoo artifact",
+                    s.formats_pre_cuckoo, mdir, reads)
+    finally:
+        s.stop_artifact_command()
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "cammiq_tpu", "bench", "benchmarks"))
     if leaked:

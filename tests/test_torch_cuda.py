@@ -35,9 +35,9 @@ from cammiq_tpu_torch.query.probe import to_device_index
 import cammiq_tpu_torch.query.sortjoin as tsj
 from cammiq_tpu_torch.query.sortjoin import (TorchMergedIndex, classify_batch,
                                              collect_matches)
-from torch_fixture import (dist_fixture, end_run_table, flat_table,
-                           gather_tables, large_bucket_index, pair_corpus,
-                           planted_reads)
+from torch_fixture import (ALPHA, by_entry_key, dist_fixture, end_run_table,
+                           flat_table, gather_tables, large_bucket_index,
+                           pair_corpus, pair_genomes, pair_reads, planted_reads)
 
 pytestmark = pytest.mark.cuda
 
@@ -587,6 +587,50 @@ def test_host_engines_match_cuda_build(cuda_device, engine, bounded):
     cfg = BuildConfig(k=20, L=100, Lmax=40, h=20, mode="both", bounded_sa=bounded)
     _same_build(build_index(corpus, cfg, engine=engine),
                 build_index(corpus, cfg, device=cuda_device))
+
+
+@pytest.mark.parametrize("engine", ["sortjoin", "gather"])
+def test_reference_format_index_on_card(cuda_device, tmp_path, engine):
+    """A cuda-built pair written in the reference's .bin1/.bin2 format and
+    read back: the same entry set, and sessions on the card over the
+    imported pair count as over the original (rcounts by entry key, as the
+    import orders entries by its trie walk), in quant and sc mode."""
+    from cammiq_tpu_torch.io.fasta import corpus_from_sequences
+    from cammiq_tpu_torch.index.refcompat import (reference_index_to_flat,
+                                                  write_reference_index)
+
+    gs, planted = pair_genomes(17, ng=5, glen=600, seg=120)
+    corpus = corpus_from_sequences([[ALPHA[x].tobytes()] for x in gs])
+    art = build_index(corpus, BuildConfig(k=12, L=60, Lmax=30, h=12, mode="both"),
+                      device=cuda_device)
+    orig = (art.unique_index, art.doubly_index)
+    imported = []
+    for ix, name in zip(orig, ("index.bin1", "index.bin2")):
+        p = str(tmp_path / name)
+        write_reference_index(p, ix)
+        back = reference_index_to_flat(p, Lmax=30)
+        assert back.num_entries == ix.num_entries
+        for f in ("rid1", "rid2", "ucount1", "ucount2"):
+            assert by_entry_key(back, getattr(back, f)) == by_entry_key(ix, getattr(ix, f))
+        imported.append(back)
+    assert orig[1].num_entries > 0
+    rs = pair_reads(gs, planted, 5)
+    cfg = QueryConfig(h=12, batch_size=128)
+    for sc_mode in (False, True):
+        got, want = (QuerySession(*pair, 6, cfg, device=cuda_device,
+                                  engine=engine).run(rs, sc_mode=sc_mode)
+                     for pair in (imported, orig))
+        for f in ("cnts_u", "cnts_d"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+        assert (got.nundet, got.nconf, got.pair_counts) == (
+            want.nundet, want.nconf, want.pair_counts)
+        assert got.cnts_u.sum() > 0
+        if sc_mode:
+            assert got.pair_counts
+        else:
+            for f, a, b in (("rcount_u", imported[0], orig[0]),
+                            ("rcount_d", imported[1], orig[1])):
+                assert by_entry_key(a, getattr(got, f)) == by_entry_key(b, getattr(want, f))
 
 
 def test_wrappers_reject_bad_inputs(cuda_device):

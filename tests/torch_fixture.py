@@ -9,7 +9,7 @@ import numpy as np
 from cammiq_tpu_torch.config import BuildConfig
 from cammiq_tpu_torch.index.table import build_flat_index_from_entries
 from cammiq_tpu_torch.io.fasta import corpus_from_sequences
-from cammiq_tpu_torch.io.fastq import reads_from_arrays
+from cammiq_tpu_torch.io.fastq import ReadSet, reads_from_arrays
 from cammiq_tpu_torch.query.merged import build_merged_index
 
 
@@ -31,6 +31,39 @@ def pair_genomes(seed, ng=5, glen=400, seg=90):
             gs[h][at:at + seg] = s
             planted.append((h, at))
     return gs, planted
+
+
+def pair_reads(gs, planted, seed, n=240, Lp=64, seg=120, minus1=0.01):
+    """A ReadSet of n reads of both strands, 40 to Lp bases, with 2%
+    substitutions, half from planted segments (of ``pair_genomes``, ``seg``
+    bases long); ``minus1`` of the codes within a read -1 (an N)."""
+    rng = np.random.default_rng(seed)
+    codes = np.zeros((n, Lp), np.int8)
+    lengths = rng.integers(40, Lp + 1, n).astype(np.int32)
+    for b in range(n):
+        if b % 2:
+            g, at = planted[int(rng.integers(len(planted)))]
+            p = at + int(rng.integers(0, seg - Lp + 1))
+        else:
+            g = int(rng.integers(len(gs)))
+            p = int(rng.integers(0, len(gs[g]) - Lp))
+        x = gs[g][p:p + Lp].copy()
+        if rng.random() < 0.5:
+            x = 3 - x[::-1]
+        err = rng.random(Lp) < 0.02
+        x[err] = rng.integers(0, 4, int(err.sum()))
+        codes[b, :lengths[b]] = x[:lengths[b]]
+    codes[(rng.random(codes.shape) < minus1) & (np.arange(Lp) < lengths[:, None])] = -1
+    return ReadSet(codes=codes, lengths=lengths, total_len=int(lengths.sum()),
+                   name="pairs")
+
+
+def by_entry_key(ix, values):
+    """{(key words, length): value} over a FlatIndex's entries: tables that
+    hold the same entries in another order (an import of the reference's
+    format orders them by its trie walk) compare by key."""
+    return {(tuple(int(w) for w in ix.key_words[e]), int(ix.length[e])): int(values[e])
+            for e in range(ix.num_entries)}
 
 
 def pair_corpus(seed, **kw):

@@ -15,15 +15,16 @@ counterpart of ``cammiq_tpu/parallel/dist_query.py``, its sort-join half
   then ONE ``all_gather_into_tensor`` of the ``[b, maxm]`` slots, rid1 and
   rid2, giving every rank of the row ``[b, model * maxm]`` slots (slot ids
   are global entry ids, so the gathered slots are the reads' matches in
-  the whole index).  The row's lead (model index 0) runs ``case_analysis``
-  on them and adds the counts; the other ranks only probe.  Shapes are
-  fixed and nothing waits on the host, so a grid batch makes no host sync.
+  the whole index).  The row's lead (model index 0) runs ``case_count``
+  on them (one kernel launch: the counts and the rcount); the other ranks
+  only probe.  Shapes are fixed and nothing waits on the host, so a grid
+  batch makes no host sync.
 - Per pass, the session (``query/pipeline.py``) sums its one counter
   buffer over the grid with one ``all_reduce``.
 
-rcount comes from the gathered slots (``case_analysis``' distinct sorted
-slots of the assigned reads), as ``cammiq_tpu``'s ``rcounts_from_case``
-does, and not from each shard's own match rows: an entry and its
+rcount comes from the gathered slots (``case_count``: the distinct slots
+of the assigned reads), as ``cammiq_tpu``'s ``rcounts_from_case`` does,
+and not from each shard's own match rows: an entry and its
 reverse-complement twin share one global id and may sit in two shards, so
 a read that holds both would be counted once per shard.
 
@@ -42,9 +43,10 @@ rank at model index ``m`` holds shard ``m`` of both tables as
 ids ``u_base = m * Eu_pad`` and ``d_base = model * Eu_pad + m * Ed_pad``
 (``Eu_pad``, ``Ed_pad``: the tables' padded shard lengths); the row
 gathers the ``[3, b, 4 O]`` slots in one collective and every rank of it
-runs the case analysis, then adds ``rcounts_from_case`` over its own id
-ranges.  ``classify`` returns the batch's counts on the host, the same on
-every rank, with rcounts mapped back to entry order through ``orig_id``.
+runs ``case_count`` once, its counts and the rcounts of its own two id
+ranges written straight into the buffer the column reduces.
+``classify`` returns the batch's counts on the host, the same on every
+rank, with rcounts mapped back to entry order through ``orig_id``.
 """
 
 from __future__ import annotations
@@ -60,8 +62,7 @@ import torch.distributed as dist
 from ..device import resolve_device
 from ..index.table import FlatIndex, _empty_flat_index, hash_prefix
 from ..query import classify
-from ..query.classify import (BatchCounts, MatchSlots, add_case_rcounts,
-                              case_analysis, rcounts_from_case)
+from ..query.classify import BatchCounts, MatchSlots, case_count
 from ..query.merged import (BLOOM_LOG_WORDS, NEVER_LEN, _build_bloom,
                             _build_cuckoo, _fused_records)
 from ..query.probe import DeviceIndex, stage_index
@@ -254,25 +255,27 @@ class DistSortJoinSession:
     def classify_batch(self, codes: torch.Tensor, lengths: torch.Tensor,
                        num_genome_slots: int, maxm: int,
                        rcount: torch.Tensor | None = None,
-                       sc_mode: bool = False, frac: int = 0) -> BatchCounts:
+                       sc_mode: bool = False, frac: int = 0,
+                       counts: torch.Tensor | None = None) -> BatchCounts:
         """``sortjoin.classify_batch`` for this rank's reads (``b`` rows of
         the global batch) against its shard, with the row's slots
         gathered.  Every rank of the row must call it with the same
         ``maxm`` and shapes.  On the row's lead the result is the reads'
-        counts and ``rcount`` gets the distinct entries of each assigned
-        read; elsewhere only the overflow counts are set (the other fields
-        are None) and ``rcount`` is not touched."""
+        counts (added to ``counts`` when given) and ``rcount`` gets the
+        distinct entries of each assigned read; elsewhere only the overflow
+        counts are set (the other fields are None) and neither ``counts``
+        nor ``rcount`` is touched."""
         mt = collect_matches(self.dm, codes, lengths, maxm, frac)
         slots = self.gather(mt.slots)
         if self.grid.model_index:
             return BatchCounts(None, None, None, None, mt.overflow_slots,
                                mt.overflow_hits, None, None)
-        case = case_analysis(slots, lengths, num_genome_slots, sc_mode=sc_mode)
-        if rcount is not None:
-            add_case_rcounts(rcount, case)
-        return BatchCounts(case.cnts_u, case.cnts_d, case.nundet, case.nconf,
-                           mt.overflow_slots, mt.overflow_hits, case.pair_lo,
-                           case.pair_hi)
+        cc = case_count(slots, lengths, num_genome_slots, sc_mode=sc_mode,
+                        rcounts=() if rcount is None else ((rcount, 0),),
+                        counts=counts)
+        return BatchCounts(cc.cnts_u, cc.cnts_d, cc.nundet, cc.nconf,
+                           mt.overflow_slots, mt.overflow_hits, cc.pair_lo,
+                           cc.pair_hi)
 
 
 # ---- the gather engine's twin: copies of the JAX package's FlatIndex
@@ -499,20 +502,19 @@ class DistQuerySession:
         # case analysis is the same on every rank of the row
         ms = classify.collect_matches(self.didx_u, self.didx_d, c, ln,
                                       self.u_base, self.d_base)
-        case = case_analysis(gather_slots(grid, ms, self.mp * su.e_pad), ln, G,
-                             sc_mode=self.sc_mode)
         E2 = su.e_pad + sd.e_pad
-        # the counts, and the rcounts over this rank's two id ranges,
-        # summed over the column
-        buf = torch.cat([case.cnts_u, case.cnts_d, case.nundet[None],
-                         case.nconf[None],
-                         rcounts_from_case(case, self.u_base, su.e_pad),
-                         rcounts_from_case(case, self.d_base, sd.e_pad)])
+        # the counts, and the rcounts over this rank's two id ranges, in
+        # one buffer summed over the column
+        buf = torch.zeros(2 * G + 2 + E2, dtype=torch.int32, device=dev)
+        rc = buf[2 * G + 2:]
+        cc = case_count(gather_slots(grid, ms, self.mp * su.e_pad), ln, G,
+                        sc_mode=self.sc_mode, counts=buf[:2 * G + 2],
+                        rcounts=((rc[:su.e_pad], self.u_base),
+                                 (rc[su.e_pad:], self.d_base)))
         dist.all_reduce(buf, group=grid.data_group)
         rc_all = buf.new_empty(self.mp * E2)
-        dist.all_gather_into_tensor(rc_all, buf[2 * G + 2:].contiguous(),
-                                    group=grid.model_group)
-        pairs = torch.stack([case.pair_lo, case.pair_hi])
+        dist.all_gather_into_tensor(rc_all, rc, group=grid.model_group)
+        pairs = torch.stack([cc.pair_lo, cc.pair_hi])
         pairs_all = pairs.new_empty((self.dp * 2, pairs.shape[1]))
         dist.all_gather_into_tensor(pairs_all, pairs, group=grid.data_group)
         pairs_all = pairs_all.view(self.dp, 2, -1).permute(1, 0, 2).reshape(2, -1)

@@ -173,7 +173,7 @@ class QuerySession:
         self.num_entries_u = eu
         self.num_entries_d = ed
         self._rc_d0 = rc_d0            # the doubly entries' first rcount slot
-        self._rc_size = rc_d0 + rc_ed  # rcount slots (its dump comes after)
+        self._rc_size = rc_d0 + rc_ed  # rcount slots
         self.maxm = MAXM_SEED
         self._pair_src = None       # host (rid1, rid2) of the doubly entries
         self._pair_keys_host = None  # int64 [P], sorted
@@ -200,15 +200,17 @@ class QuerySession:
         dev = self.device
         pk = self.pair_keys() if sc_mode else None
         P = pk.shape[0] if sc_mode else 0
+        # the first four are case_count's counts, in its order
         sizes = {"cnts_u": G, "cnts_d": G, "nundet": 1, "nconf": 1, "ovs": 1,
                  "ovh": 1,
                  # [P + 1]: the last slot is a dump for unassigned reads
                  "pairacc": P + 1}
         if with_rcounts:   # the largest copy of the pass: only when asked
-            sizes["rcount"] = self._rc_size + 1
+            sizes["rcount"] = self._rc_size
         # every counter a view of ONE tensor, so the pass ends in one copy
         buf = torch.zeros(sum(sizes.values()), dtype=torch.int32, device=dev)
         acc = dict(zip(sizes, torch.split(buf, list(sizes.values()))))
+        counts = buf[:2 * G + 2]
         upload = _Upload(dev)
         grid = self.grid
         rows = slice(None) if grid is None else grid.data_slice(bs)
@@ -223,7 +225,7 @@ class QuerySession:
         for batch in reads.batches(bs):
             codes, lengths = upload(batch.codes[rows], batch.lengths[rows])
             out = classify(codes, lengths, G, rcount=acc.get("rcount"),
-                           sc_mode=sc_mode)
+                           sc_mode=sc_mode, counts=counts)
             if out.overflow_slots is not None:   # the gather cannot overflow
                 torch.maximum(acc["ovs"], out.overflow_slots, out=acc["ovs"])
                 torch.maximum(acc["ovh"], out.overflow_hits, out=acc["ovh"])
@@ -236,10 +238,6 @@ class QuerySession:
                 acc["pairacc"].index_add_(
                     0, torch.where(hit, i, P),
                     torch.ones_like(i, dtype=torch.int32))
-            acc["cnts_u"] += out.cnts_u
-            acc["cnts_d"] += out.cnts_d
-            acc["nundet"] += out.nundet
-            acc["nconf"] += out.nconf
         if grid is not None:        # the pass's one reduction
             dist.all_reduce(buf, group=grid.group)
         host = dict(zip(sizes, np.split(buf.cpu().numpy(),  # the pass's sync
@@ -289,7 +287,7 @@ class QuerySession:
                 if host is not None:
                     break
         eu, ed, d0 = self.num_entries_u, self.num_entries_d, self._rc_d0
-        rc = (host["rcount"][:-1].astype(np.int64) if with_rcounts
+        rc = (host["rcount"].astype(np.int64) if with_rcounts
               else np.zeros(self._rc_size, np.int64))
         pair_counts = {}
         if sc_mode:

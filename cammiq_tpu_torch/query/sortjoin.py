@@ -20,7 +20,9 @@ Per batch, on fixed shapes and with no host sync:
      int64 key read * 2^31 + gid (empty slots carry read = B and sort
      last), dedup, rank within each read via kernel 1
      (``first_of_run_scan``), scatter into [B, maxm] slots (empty slots
-     and overflowing ranks into a dump slot).
+     and overflowing ranks into a dump slot);
+  4. kernel 4 (``case_count``): the case analysis of the slots and the
+     rcount of each assigned read's distinct entries, one launch.
 Slot overflow (more than maxm distinct matches in a read) and hit
 overflow are counted on the device; the session widens maxm or KP and
 re-runs the pass.
@@ -38,7 +40,7 @@ from .. import u32
 from ..kernels.cuckoo_verify import cuckoo_verify
 from ..kernels.first_of_run import first_of_run_scan
 from ..kernels.probe_bloom import num_offsets, probe_bloom
-from .classify import BIG, BatchCounts, MatchSlots, case_analysis
+from .classify import BIG, BatchCounts, MatchSlots, case_count
 from .merged import (
     BLOOM_DEVICE_LOG,
     MergedIndex,
@@ -131,13 +133,9 @@ class TorchMergedIndex:
 
 
 class Matches(NamedTuple):
-    """Match rows sorted by (read, gid) on [KP], plus the slots.  Empty
-    rows have read = B and distinct False."""
+    """A batch's [B, maxm] slots and its overflow counts."""
 
     slots: MatchSlots
-    read: torch.Tensor       # int64 [KP] read of each match row
-    gid: torch.Tensor        # int32 [KP] global entry id
-    distinct: torch.Tensor   # bool [KP] first row of its (read, gid)
     overflow_slots: torch.Tensor   # int32 [] distinct matches beyond maxm
     overflow_hits: torch.Tensor    # int32 [] matches beyond KP
 
@@ -203,30 +201,31 @@ def collect_matches(dm: TorchMergedIndex, codes: torch.Tensor,
     ms = MatchSlots(slots=slots, rid1=scatter(0, pr[:, 1].contiguous()),
                     rid2=scatter(0, pr[:, 2].contiguous()),
                     in_u=(slots < BIG) & (slots < dm.eu))
-    return Matches(ms, read, gid, distinct, overflow, counts[1])
+    return Matches(ms, overflow, counts[1])
 
 
 def classify_batch(dm: TorchMergedIndex, codes: torch.Tensor,
                    lengths: torch.Tensor, num_genome_slots: int, maxm: int,
                    rcount: torch.Tensor | None = None,
-                   sc_mode: bool = False, frac: int = 0) -> BatchCounts:
-    """Collect + case analysis for one batch, with no host sync on a CUDA
-    device.
+                   sc_mode: bool = False, frac: int = 0,
+                   counts: torch.Tensor | None = None) -> BatchCounts:
+    """Collect + case analysis for one batch (``case_count``: one launch
+    on a CUDA device), with no host sync there.
 
-    ``rcount`` (int32 [eu+ed+1], last slot a dump) is the pass
-    accumulator: rcount[e] += 1 for every distinct (read, entry) of an
-    assigned read, added in place (``part2``, sortjoin.py:1346-1359).
-    ``sc_mode`` fills ``pair_lo/pair_hi`` with each read's assigned
-    genome pair (case_analysis); the JAX session takes no rcount then.
-    ``frac`` sizes the match list (``match_capacity``)."""
+    ``rcount`` (int32, at least eu + ed elements) is the pass accumulator:
+    rcount[e] += 1 for every distinct entry e of an assigned read, added in
+    place from its slots (``part2``, sortjoin.py:1346-1359, adds the same
+    from the match list; the two agree on a batch whose slots did not
+    overflow, and the session discards a pass that overflowed).
+    ``sc_mode`` fills ``pair_lo/pair_hi`` with each read's assigned genome
+    pair; the JAX session takes no rcount then.  ``frac`` sizes the match
+    list (``match_capacity``).  ``counts`` (int32 [2G + 2]: cnts_u, cnts_d,
+    nundet, nconf), when given, is a pass accumulator the batch's counts
+    are added to in place, and the returned counts are its views."""
     mt = collect_matches(dm, codes, lengths, maxm, frac)
-    case = case_analysis(mt.slots, lengths, num_genome_slots, sc_mode=sc_mode)
-    if rcount is not None:
-        # empty match rows have read = B: a False row past the last read
-        assigned = torch.cat([case.assigned, case.assigned.new_zeros(1)])
-        ok = mt.distinct & assigned.index_select(0, mt.read)
-        tgt = torch.where(ok, mt.gid.to(torch.int64), rcount.shape[0] - 1)
-        rcount.index_add_(0, tgt, torch.ones_like(tgt, dtype=torch.int32))
-    return BatchCounts(case.cnts_u, case.cnts_d, case.nundet, case.nconf,
-                       mt.overflow_slots, mt.overflow_hits, case.pair_lo,
-                       case.pair_hi)
+    cc = case_count(mt.slots, lengths, num_genome_slots, sc_mode=sc_mode,
+                    rcounts=() if rcount is None else ((rcount, 0),),
+                    counts=counts)
+    return BatchCounts(cc.cnts_u, cc.cnts_d, cc.nundet, cc.nconf,
+                       mt.overflow_slots, mt.overflow_hits, cc.pair_lo,
+                       cc.pair_hi)

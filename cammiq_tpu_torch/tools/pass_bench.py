@@ -17,9 +17,11 @@ first batch to its plain version and times it, device only (``device_ms``),
 also with both tables inside the L2 (``probe_times``).
 Then it warms up with one pass of each mode and times ``--passes`` quant
 and sc-mode passes in turns (host clock around ``QuerySession.run``, which
-ends in its blocking transfer).  Prints one JSON line: the checkout, the
-card, the session start, each pass's seconds, the median reads/s by mode
-and, for the gather engine, the kernel's times.
+ends in its blocking transfer), and last one more quant pass under
+``torch.profiler`` (``profile_pass``).  Prints one JSON line: the
+checkout, the card, the session start, each pass's seconds, the median
+reads/s by mode, the profile and, for the gather engine, the kernel's
+times.
 """
 
 from __future__ import annotations
@@ -62,6 +64,29 @@ def device_ms(fn, calls: int = 20, reps: int = 3) -> float | None:
         if queued:
             times.append(s.elapsed_time(e) / calls)
     return statistics.median(times) if times else None
+
+
+def profile_pass(run) -> dict:
+    """``run()`` (a warm pass) under torch.profiler: its wall time, the
+    device's busy time, its number of device operations (kernels, copies,
+    memsets) and the device time by kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.time()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t) * 1e3
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev.sort(key=lambda e: -e.self_device_time_total)
+    return {"wall_ms": wall_ms,
+            "device_ms": sum(e.self_device_time_total for e in dev) / 1e3,
+            "device_ops": sum(e.count for e in dev),
+            "lines": [f"{e.self_device_time_total / 1e3:.3f} ms {e.count}x "
+                      f"{e.key[:120]}" for e in dev]}
 
 
 def probe_times(sess, reads, reps: int) -> dict:
@@ -152,6 +177,8 @@ def main(argv=None) -> int:
                 passes[mode].append(time.perf_counter() - t)
     result.update(pass_s=passes, reads_per_s={
         m: reads.num_reads / statistics.median(p) for m, p in passes.items()})
+    prof = profile_pass(lambda: sess.run(reads))
+    result["profile"] = {**prof, "lines": prof["lines"][:10]}
     print(json.dumps(result))
     return 0
 

@@ -8,7 +8,7 @@ C++ compiler with OpenMP.  It builds everything from this checkout, imports
 nothing of JAX or of the JAX package, and exits nonzero if any phase fails:
 
 1. header: the card's name and power limit, torch/CUDA/nvcc versions; the
-   six CUDA kernels and the native host library are compiled (build
+   seven CUDA kernels and the native host library are compiled (build
    seconds printed);
 2. set-up: the config-#3-shape index (the bench generator,
    tools/benchdata.py: 1000 genomes x 300 kb, k=26 L=100 Lmax=50 h=26),
@@ -22,8 +22,10 @@ nothing of JAX or of the JAX package, and exits nonzero if any phase fails:
    reads x 100 bases at the session's match capacity; the scan also at
    n = 2^20): probe_bloom's survivors, keys and count exactly,
    cuckoo_verify's match list sorted by (row, entry) with its counts, the
-   scan exactly; median CUDA-event times of both beside the kernel's
-   bound, and the kernel's device-only time;
+   scan exactly, case_count's counts, pairs and rcount exactly on the
+   batch's [8192, maxm] slots in quant and sc mode; median CUDA-event
+   times of both beside the kernel's bound, and the kernel's device-only
+   time;
 4. toy end to end through the CLI (5 x 2000 bp genomes, 4000 simulated
    reads, index built on cuda): quant abundances within 0.01 of the truth
    for all 5 genomes, a Type-I file identical to the one the CPU path
@@ -44,8 +46,9 @@ nothing of JAX or of the JAX package, and exits nonzero if any phase fails:
    included, must be identical through the kernels (cuda) and the plain
    versions (cpu);
 7. profile: one more quant pass under torch.profiler, device time by
-   kernel and the device's busy share of the pass's wall time (the table
-   also goes to chiprun_out/chip_smoke_profile.txt);
+   kernel, the device operations a batch and the device's busy share of
+   the pass's wall time (the table also goes to chip_smoke_profile.txt
+   in the output directory);
 8. distributed query (parallel/): (a) a world of one rank over NCCL
    (TCPStore on 127.0.0.1) and its 1 x 1 ProcessGrid;
    QuerySession.from_artifact(grid=...) builds its shard (the whole index)
@@ -55,7 +58,7 @@ nothing of JAX or of the JAX package, and exits nonzero if any phase fails:
    (b) two model shards of the config-#3 artifact on the one card (their
    build timed, their geometry printed), the 16 batches probed through the
    kernels against both, the slots concatenated as a row's all_gather
-   gives them, then case_analysis and the rcount: counts equal the
+   gives them, then case_count (counts and rcount): counts equal the
    unsharded session's; each query kernel at the shard's shapes against
    its plain version, timed beside its whole-index time (launch counters
    zeroed before (a)'s pass and (b)'s batches, read after);
@@ -68,8 +71,10 @@ nothing of JAX or of the JAX package, and exits nonzero if any phase fails:
    each mode under sync debug mode "error" and one sync a pass; the kernel
    against its plain version on the same CUDA tensors at one batch's
    shapes, beside its bound and the mean table rows a probe walks in each
-   table (to its hit or its first empty row); quant passes of the two engines in turns
-   (reads/s of each); DistQuerySession on a world of one NCCL rank and two
+   table (to its hit or its first empty row), and case_count against its
+   plain version on the batch's [8192, 300] slots; quant passes of the two
+   engines in turns (reads/s of each), then one gather pass under the
+   profiler (device operations a batch, busy share); DistQuerySession on a world of one NCCL rank and two
    FlatIndex shards on the one card, their slots concatenated: every count
    equal to the single-device gather's;
 10. toy Type-II through the CLI: 5 genomes x 2000 bp with a 300 bp segment
@@ -181,19 +186,27 @@ KERNEL_INFO = {
                   "cammiq_tpu/index/unique_jax.py:132", "build"),
     "gather_probe": ("cammiq_tpu_torch/csrc/gather_probe.cu",
                      "cammiq_tpu/query/probe.py:129", "gather"),
+    # XLA-fused work, not a Pallas kernel: case_analysis + rcounts_from_case,
+    # at the sort join's slots and at the gather engine's
+    "case_count": ("cammiq_tpu_torch/csrc/case_count.cu",
+                   "cammiq_tpu/query/classify.py:160", "quant"),
+    "case_count@gather": ("cammiq_tpu_torch/csrc/case_count.cu",
+                          "cammiq_tpu/query/classify.py:160", "gather"),
 }
 # the kernels each driven path must launch
+SORTJOIN_KERNELS = ("first_of_run", "probe_bloom", "cuckoo_verify", "case_count")
+GATHER_KERNELS = ("gather_probe", "case_count")
 PATH_KERNELS = {
-    "quant": ("first_of_run", "probe_bloom", "cuckoo_verify"),
-    "typeII": ("first_of_run", "probe_bloom", "cuckoo_verify"),
-    "grid": ("first_of_run", "probe_bloom", "cuckoo_verify"),
-    "shards": ("first_of_run", "probe_bloom", "cuckoo_verify"),
+    "quant": SORTJOIN_KERNELS,
+    "typeII": SORTJOIN_KERNELS,
+    "grid": SORTJOIN_KERNELS,
+    "shards": SORTJOIN_KERNELS,
     "build": ("first_of_run", "lcp_pairs", "occ_count"),
     "build_check": ("first_of_run", "lcp_pairs", "occ_count"),
-    "gather": ("gather_probe",),
-    "gather_grid": ("gather_probe",),
-    "gather_shards": ("gather_probe",),
-    "refcompat": ("first_of_run", "probe_bloom", "cuckoo_verify", "gather_probe"),
+    "gather": GATHER_KERNELS,
+    "gather_grid": GATHER_KERNELS,
+    "gather_shards": GATHER_KERNELS,
+    "refcompat": SORTJOIN_KERNELS + ("gather_probe",),
 }
 # phase 14: read batches on the reference-format index, and the engines
 REF_BATCHES = 4
@@ -415,15 +428,16 @@ def bound_occ_doubly(lcp, lcp0, gsa, g2, ulmax, end_excl) -> dict:
 
 
 def kernel_counters() -> dict:
-    from cammiq_tpu_torch.kernels import (cuckoo_verify, first_of_run,
-                                          gather_probe, lcp_pairs, occ_count,
-                                          probe_bloom)
+    from cammiq_tpu_torch.kernels import (case_count, cuckoo_verify,
+                                          first_of_run, gather_probe, lcp_pairs,
+                                          occ_count, probe_bloom)
 
     return {"first_of_run": first_of_run.KERNEL,
             "probe_bloom": probe_bloom.KERNEL,
             "cuckoo_verify": cuckoo_verify.KERNEL,
             "lcp_pairs": lcp_pairs.KERNEL, "occ_count": occ_count.KERNEL,
-            "gather_probe": gather_probe.KERNEL}
+            "gather_probe": gather_probe.KERNEL,
+            "case_count": case_count.KERNEL}
 
 
 def zero_counts() -> None:
@@ -444,17 +458,17 @@ def read_counts(path: str, results: dict) -> dict:
 
 def capture_kernel_calls(fn) -> dict:
     """Run ``fn`` (one query batch) with each query kernel's wrapper in
-    query/sortjoin.py recording its arguments and result: name ->
-    (args, out) of its last call."""
+    query/sortjoin.py recording its positional arguments and result: name
+    -> (args, out) of its last call."""
     import cammiq_tpu_torch.query.sortjoin as sj
 
     captured, originals = {}, {}
-    for name in ("probe_bloom", "cuckoo_verify", "first_of_run_scan"):
+    for name in ("probe_bloom", "cuckoo_verify", "first_of_run_scan", "case_count"):
         orig = getattr(sj, name)
         originals[name] = orig
 
-        def rec(*a, _n=name, _f=orig):
-            out = _f(*a)
+        def rec(*a, _n=name, _f=orig, **kw):
+            out = _f(*a, **kw)
             captured[_n] = (a, out)
             return out
 
@@ -480,29 +494,6 @@ def count_syncs(fn) -> int:
         finally:
             torch.cuda.set_sync_debug_mode("default")
     return sum(SYNC_WARNING in str(w.message) for w in caught)
-
-
-def profile_pass(run) -> dict:
-    """``run()`` (a warm pass) under torch.profiler: its wall time, the
-    device's busy time, its number of device operations (kernels, copies,
-    memsets) and the device time by kernel."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.time()
-        run()
-        torch.cuda.synchronize()
-        wall_ms = (time.time() - t) * 1e3
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    dev.sort(key=lambda e: -e.self_device_time_total)
-    return {"wall_ms": wall_ms,
-            "device_ms": sum(e.self_device_time_total for e in dev) / 1e3,
-            "device_ops": sum(e.count for e in dev),
-            "lines": [f"{e.self_device_time_total / 1e3:.3f} ms {e.count}x "
-                      f"{e.key[:120]}" for e in dev]}
 
 
 def free_port() -> int:
@@ -671,12 +662,14 @@ class TwoGatherShards:
                for m, (du, dd) in enumerate(self.shards)]
         ms = gc.MatchSlots(*(torch.cat([getattr(x, f) for x in mss], 1)
                              for f in gc.MatchSlots._fields))
-        case = gc.case_analysis(ms, ln, self.G, sc_mode=True)
-        out = {f: getattr(case, f).cpu().numpy() for f in
-               ("cnts_u", "cnts_d", "nundet", "nconf", "pair_lo", "pair_hi")}
-        for name, s, lo, idx in (("rcount_u", su, 0, self.index_u),
-                                 ("rcount_d", sd, 2 * su.e_pad, self.index_d)):
-            part = gc.rcounts_from_case(case, lo, 2 * s.e_pad).cpu().numpy()
+        rcs = [torch.zeros(2 * s.e_pad, dtype=torch.int32, device=self.device)
+               for s in (su, sd)]
+        cc = gc.case_count(ms, ln, self.G, sc_mode=True,
+                           rcounts=((rcs[0], 0), (rcs[1], 2 * su.e_pad)))
+        out = {f: getattr(cc, f).cpu().numpy() for f in cc._fields}
+        for name, s, part, idx in (("rcount_u", su, rcs[0], self.index_u),
+                                   ("rcount_d", sd, rcs[1], self.index_d)):
+            part = part.cpu().numpy()
             rc = np.zeros(idx.num_entries, np.int64)
             sel = s.orig_id.reshape(-1) >= 0
             rc[s.orig_id.reshape(-1)[sel]] = part[sel]
@@ -752,6 +745,36 @@ class Smoke:
         if not same:
             raise AssertionError(f"{name}: kernel != plain version")
         return got
+
+    def case_count_vs_plain(self, name, ms, lengths, G, E):
+        """case_count against its plain version on the same CUDA tensors,
+        in quant and sc mode: counts, pairs and the rcount into a fresh
+        [E] target exactly; then both timed (an rcount target kept across
+        calls) beside the bound of ``case_count_traffic``."""
+        import torch
+
+        from cammiq_tpu_torch.kernels import case_count as kcc
+
+        err = 0
+        for sc in (False, True):
+            outs = []
+            for fn in (kcc.case_count, kcc.case_count_plain):
+                rc = torch.zeros(E, dtype=torch.int32, device=lengths.device)
+                outs.append((*fn(ms, lengths, G, sc_mode=sc, rcounts=((rc, 0),)), rc))
+            torch.cuda.synchronize()
+            err = max(err, *(max_abs_err(a, b) for a, b in zip(*outs)))
+            if not all(torch.equal(a, b) for a, b in zip(*outs)):
+                raise AssertionError(f"{name}: kernel != plain version (sc_mode={sc})")
+        rc = torch.zeros(E, dtype=torch.int32, device=lengths.device)
+        traffic = kcc.case_count_traffic(ms, lengths, G, ((rc, 0),))
+        log(f"{name}: slots {tuple(ms.slots.shape)}, {traffic['valid']} valid in "
+            f"{traffic['rid_sectors']} 32-byte sectors of each rid array, "
+            f"{traffic['rcount_touched']} rcount elements touched; counts, "
+            f"pairs and rcount equal the plain version's in quant and sc mode")
+        self.compare(name, kcc.case_count, kcc.case_count_plain, (ms, lengths, G),
+                     bound(traffic["bytes"], traffic["ops"]), plain_reps=(5, 5, 1),
+                     rcounts=((rc, 0),))
+        self.kernels[name]["max_abs_err"] = max(err, self.kernels[name]["max_abs_err"])
 
     # ---- 1. header + kernel and native builds
     def header(self):
@@ -906,13 +929,17 @@ class Smoke:
         self.compare("first_of_run@2^20", kfr.first_of_run_scan,
                      kfr.first_of_run_scan_plain, scan_big,
                      bound_first_of_run(*scan_big))
+        (ms, _, G), _ = captured["case_count"]
+        self.case_count_vs_plain("case_count", ms, lengths, G,
+                                 sess.dm.eu + sess.dm.ed)
 
     # ---- 4. toy end to end through the CLI
     def toy_cli(self):
         import numpy as np
 
         from cammiq_tpu_torch import cli
-        from cammiq_tpu_torch.kernels import cuckoo_verify, first_of_run, probe_bloom
+        from cammiq_tpu_torch.kernels import (case_count, cuckoo_verify,
+                                              first_of_run, probe_bloom)
         from cammiq_tpu_torch.models.output import parse_quant_output
         from cammiq_tpu_torch.tools.simulate import simulate
 
@@ -938,7 +965,8 @@ class Smoke:
             fq, truth = os.path.join(root, "reads.fq"), os.path.join(root, "truth.out")
             simulate(mapf, db, fq, truth, num_reads=4000, L=100, erate=0.01,
                      dist="lognormal", seed=0)
-            kerns = (probe_bloom.KERNEL, cuckoo_verify.KERNEL, first_of_run.KERNEL)
+            kerns = (probe_bloom.KERNEL, cuckoo_verify.KERNEL, first_of_run.KERNEL,
+                     case_count.KERNEL)
             for k in kerns:
                 k.launches = 0
             quant = os.path.join(root, "quant.out")
@@ -1046,7 +1074,7 @@ class Smoke:
         lengths = reads.lengths[:BATCH]
         outs = []
         for dm in (sess.dm, dm_cpu):
-            rc = torch.zeros(art.eu + art.ed + 1, dtype=torch.int32, device=dm.device)
+            rc = torch.zeros(art.eu + art.ed, dtype=torch.int32, device=dm.device)
             bc = classify_batch(dm, torch.from_numpy(codes).to(dm.device),
                                 torch.from_numpy(lengths).to(dm.device), G,
                                 sess.maxm, rc, frac=sess.frac)
@@ -1085,6 +1113,8 @@ class Smoke:
 
     # ---- 7. where a steady-state pass spends device time
     def profile(self, sess, reads):
+        from cammiq_tpu_torch.tools.pass_bench import profile_pass
+
         sess.run(reads)                                   # warm, maxm settled
         prof = profile_pass(lambda: sess.run(reads))
         self.results["profile_wall_ms"] = prof["wall_ms"]
@@ -1096,7 +1126,8 @@ class Smoke:
         log(f"one pass under the profiler: wall {prof['wall_ms']:.3f} ms, device "
             f"busy {prof['device_ms']:.3f} ms "
             f"({100 * prof['device_ms'] / prof['wall_ms']:.1f}%), "
-            f"{prof['device_ops']} device operations; device time by kernel:\n"
+            f"{prof['device_ops']} device operations "
+            f"({prof['device_ops'] / N_BATCHES:.1f} a batch); device time by kernel:\n"
             + "\n".join(prof["lines"][:12]))
 
     # ---- 6. Type-II at config-#3 scale
@@ -1543,6 +1574,7 @@ class Smoke:
         from cammiq_tpu_torch.config import QueryConfig
         from cammiq_tpu_torch.parallel.mesh import ProcessGrid
         from cammiq_tpu_torch.query.pipeline import QuerySession
+        from cammiq_tpu_torch.tools.pass_bench import profile_pass
 
         G = self.results["genomes"] + 1
         out = self.results["grid"] = {}
@@ -1632,7 +1664,7 @@ class Smoke:
         from cammiq_tpu_torch.kernels import first_of_run as kfr
         from cammiq_tpu_torch.kernels import probe_bloom as kpb
         from cammiq_tpu_torch.parallel import dist_query as dq
-        from cammiq_tpu_torch.query.classify import MatchSlots, case_analysis
+        from cammiq_tpu_torch.query.classify import MatchSlots, case_count
         from cammiq_tpu_torch.query.sortjoin import collect_matches
 
         G = self.results["genomes"] + 1
@@ -1651,20 +1683,18 @@ class Smoke:
         log(f"two shards of E={art.E}, NB={art.NB} built in "
             f"{out['two_shard_build_s']:.1f} s: {out['two_shard_geometry']}")
         dev = sess.device
-        nrc = art.eu + art.ed + 1
+        # (cnts_u | cnts_d | nundet | nconf), the layout case_count adds to
         acc = {k: torch.zeros(n, dtype=torch.int32, device=dev) for k, n in
-               (("cnts_u", G), ("cnts_d", G), ("nundet", 1), ("nconf", 1),
-                ("ovs", 1), ("ovh", 1), ("rcount", nrc))}
+               (("counts", 2 * G + 2), ("ovs", 1), ("ovh", 1),
+                ("rcount", art.eu + art.ed))}
 
         def batch(codes, lengths):
             mts = [collect_matches(dm, codes, lengths, sess.maxm, sess.frac)
                    for dm in shards]
             slots = MatchSlots(*(torch.cat([getattr(mt.slots, f) for mt in mts], 1)
                                  for f in MatchSlots._fields))
-            case = case_analysis(slots, lengths, G)
-            dq.add_case_rcounts(acc["rcount"], case)
-            for k in ("cnts_u", "cnts_d", "nundet", "nconf"):
-                acc[k] += getattr(case, k)
+            case_count(slots, lengths, G, rcounts=((acc["rcount"], 0),),
+                       counts=acc["counts"])
             for mt in mts:
                 acc["ovs"] += mt.overflow_slots
                 acc["ovh"] += mt.overflow_hits
@@ -1679,12 +1709,12 @@ class Smoke:
         want = self.quant_counts
         if int(host["ovs"][0]) or int(host["ovh"][0]):
             raise AssertionError(f"two shards overflowed: {host['ovs']}, {host['ovh']}")
-        rc = host["rcount"][:-1].astype(np.int64)
-        for f, got in (("cnts_u", host["cnts_u"]), ("cnts_d", host["cnts_d"]),
+        rc, cnt = host["rcount"].astype(np.int64), host["counts"]
+        for f, got in (("cnts_u", cnt[:G]), ("cnts_d", cnt[G:2 * G]),
                        ("rcount_u", rc[:art.eu]), ("rcount_d", rc[art.eu:])):
             if not np.array_equal(got, getattr(want, f)):
                 raise AssertionError(f"two shards differ in {f}")
-        if (int(host["nundet"][0]), int(host["nconf"][0])) != (want.nundet, want.nconf):
+        if (int(cnt[2 * G]), int(cnt[2 * G + 1])) != (want.nundet, want.nconf):
             raise AssertionError("two shards differ in nundet/nconf")
         log(f"two shards, {N_BATCHES} batches through the kernels, slots "
             f"concatenated: counts equal the unsharded session's; launches "
@@ -1727,6 +1757,7 @@ class Smoke:
         from cammiq_tpu_torch.query import classify as gc
         from cammiq_tpu_torch.query import probe as gprobe
         from cammiq_tpu_torch.query.pipeline import QuerySession
+        from cammiq_tpu_torch.tools.pass_bench import profile_pass
 
         G = self.results["genomes"] + 1
         out = self.results["gather"] = {}
@@ -1767,7 +1798,7 @@ class Smoke:
         # a batch in each mode under sync debug mode "error", a pass's syncs
         codes = torch.from_numpy(reads.codes[:BATCH]).to(sess.device).contiguous()
         lengths = torch.from_numpy(reads.lengths[:BATCH]).to(sess.device)
-        rc = torch.zeros(gsess._rc_size + 1, dtype=torch.int32, device=sess.device)
+        rc = torch.zeros(gsess._rc_size, dtype=torch.int32, device=sess.device)
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
@@ -1792,6 +1823,8 @@ class Smoke:
             f"the first empty row) {bnd['rows_walked_mean']}")
         self.compare("gather_probe", kgp.gather_probe, kgp.gather_probe_plain,
                      args, bnd, plain_reps=(3, 1, 1))
+        self.case_count_vs_plain("case_count@gather", gc.MatchSlots(*got), lengths,
+                                 G, gsess._rc_size)
         # quant passes of the two engines in turns
         runs = {"sortjoin": [], "gather": []}
         for who in ("sortjoin", "gather", "gather", "sortjoin", "sortjoin", "gather"):
@@ -1810,7 +1843,8 @@ class Smoke:
             f"{['%.4f' % r for r in runs['gather']]} s -> "
             f"{out['reads_per_s']['gather']:.1f} reads/s; gather pass under the "
             f"profiler: wall {pr['wall_ms']:.3f} ms, device busy {pr['device_ms']:.3f} "
-            f"ms, {pr['device_ops']} device operations; top:\n"
+            f"ms ({100 * pr['device_ms'] / pr['wall_ms']:.1f}%), {pr['device_ops']} "
+            f"device operations ({pr['device_ops'] / N_BATCHES:.1f} a batch); top:\n"
             + "\n".join(pr["lines"][:8]))
         # the distributed twin: a world of one NCCL rank, then two shards
         store = dist.TCPStore("127.0.0.1", free_port(), 1, True,
@@ -2175,7 +2209,8 @@ class Smoke:
             k = self.kernels.get(name, {})
             kernels.append({"name": name, "route": "cuda", "source": src,
                             "replaces": replaces,
-                            "launches": launches.get(path, {}).get(name, 0),
+                            "launches": launches.get(path, {}).get(
+                                name.split("@")[0], 0),
                             "max_abs_err": k.get("max_abs_err"),
                             "ms": k.get("ms"), "plain_ms": k.get("plain_ms"),
                             "bound_ms": k.get("bound_ms"),

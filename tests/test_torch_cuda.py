@@ -17,6 +17,7 @@ import torch
 from cammiq_tpu_torch.config import BuildConfig, QueryConfig
 from cammiq_tpu_torch.index import unique as uq
 from cammiq_tpu_torch.index.builder import build_index
+from cammiq_tpu_torch.kernels import case_count as kcc
 from cammiq_tpu_torch.kernels import cuckoo_verify as kcv
 from cammiq_tpu_torch.kernels import first_of_run as kfr
 from cammiq_tpu_torch.kernels import gather_probe as kgp
@@ -28,16 +29,17 @@ from cammiq_tpu_torch.ops.sa import suffix_array
 from cammiq_tpu_torch.parallel import dist_query as tdq
 from cammiq_tpu_torch.index.table import _empty_flat_index
 from cammiq_tpu_torch.query import classify as tgc
-from cammiq_tpu_torch.query.classify import MatchSlots, case_analysis
+from cammiq_tpu_torch.query.classify import MatchSlots, case_count
 from cammiq_tpu_torch.query.merged import build_merged_index
 from cammiq_tpu_torch.query.pipeline import QuerySession
 from cammiq_tpu_torch.query.probe import to_device_index
 import cammiq_tpu_torch.query.sortjoin as tsj
 from cammiq_tpu_torch.query.sortjoin import (TorchMergedIndex, classify_batch,
                                              collect_matches)
-from torch_fixture import (ALPHA, by_entry_key, dist_fixture, end_run_table,
-                           flat_table, gather_tables, large_bucket_index,
-                           pair_corpus, pair_genomes, pair_reads, planted_reads)
+from torch_fixture import (ALPHA, CASE_BRANCHES, by_entry_key, case_rows,
+                           dist_fixture, end_run_table, flat_table, gather_tables,
+                           large_bucket_index, pair_corpus, pair_genomes,
+                           pair_reads, planted_reads)
 
 pytestmark = pytest.mark.cuda
 
@@ -480,7 +482,7 @@ def test_two_shards_on_one_card_match_unsharded(cuda_device, dist_index, sc_mode
     _, m, rs, G = dist_index
     codes = torch.from_numpy(rs.codes).to(cuda_device)
     lengths = torch.from_numpy(rs.lengths).to(cuda_device)
-    nrc = m.eu + m.ed + 1
+    nrc = m.eu + m.ed
     rc_want = torch.zeros(nrc, dtype=torch.int32, device=cuda_device)
     want = classify_batch(TorchMergedIndex.from_merged(m, cuda_device), codes,
                           lengths, G, 16, None if sc_mode else rc_want,
@@ -493,15 +495,16 @@ def test_two_shards_on_one_card_match_unsharded(cuda_device, dist_index, sc_mode
     assert kcv.KERNEL.launches == before + 2
     slots = MatchSlots(*(torch.cat([getattr(mt.slots, f) for mt in mts], 1)
                          for f in MatchSlots._fields))
-    case = case_analysis(slots, lengths, G, sc_mode=sc_mode)
     rc = torch.zeros(nrc, dtype=torch.int32, device=cuda_device)
-    tdq.add_case_rcounts(rc, case)
+    before = kcc.KERNEL.launches
+    case = case_count(slots, lengths, G, sc_mode=sc_mode, rcounts=((rc, 0),))
+    assert kcc.KERNEL.launches == before + 1
     for got, w in ((case.cnts_u, want.cnts_u), (case.cnts_d, want.cnts_d),
                    (case.nundet, want.nundet), (case.nconf, want.nconf),
                    (case.pair_lo, want.pair_lo), (case.pair_hi, want.pair_hi)):
         assert torch.equal(got, w)
     if not sc_mode:
-        assert torch.equal(rc[:-1], rc_want[:-1]) and int(rc[:-1].sum()) > 0
+        assert torch.equal(rc, rc_want) and int(rc.sum()) > 0
     assert all(int(mt.overflow_slots) == 0 for mt in mts)
 
 
@@ -886,12 +889,136 @@ def test_dist_gather_two_shards_on_one_card(cuda_device, dist_index):
                                        2 * su.e_pad + m * sd.e_pad))
     ms = MatchSlots(*(torch.cat([getattr(x, f) for x in mss], 1)
                       for f in MatchSlots._fields))
-    case = case_analysis(ms, lengths, G, sc_mode=True)
+    rcs = [torch.zeros(2 * s.e_pad, dtype=torch.int32, device=cuda_device)
+           for s in (su, sd)]
+    case = case_count(ms, lengths, G, sc_mode=True,
+                      rcounts=((rcs[0], 0), (rcs[1], 2 * su.e_pad)))
     for f in ("cnts_u", "cnts_d", "nundet", "nconf", "pair_lo", "pair_hi"):
         assert torch.equal(getattr(case, f), getattr(bc, f)), f
-    for s, lo, want in ((su, 0, rcu), (sd, 2 * su.e_pad, rcd)):
-        part = tgc.rcounts_from_case(case, lo, 2 * s.e_pad).cpu().numpy()
+    for s, part, want in ((su, rcs[0], rcu), (sd, rcs[1], rcd)):
+        part = part.cpu().numpy()
         got = np.zeros_like(want)
         sel = s.orig_id.reshape(-1) >= 0
         got[s.orig_id.reshape(-1)[sel]] = part[sel]
         np.testing.assert_array_equal(got, want)
+
+
+# ---- the case analysis and rcount (kernels/case_count.py)
+
+CASE_IDS = 200_000
+CASE_RANGES = {1: ((0, CASE_IDS),),
+               2: ((3, CASE_IDS // 2), (CASE_IDS // 2 + 11, CASE_IDS // 3))}
+
+
+def _case_both(cols, G, sc_mode, nranges, dev):
+    """case_count (one launch) and its plain version on the same CUDA
+    tensors, each into fresh rcount targets: (counts + pairs, targets)."""
+    slots, rid1, rid2, lengths = (torch.from_numpy(x).to(dev) for x in cols)
+    ms = MatchSlots(slots, rid1, rid2, in_u=slots < kcc.BIG)
+    outs = []
+    for fn in (kcc.case_count, kcc.case_count_plain):
+        targets = [(torch.zeros(size, dtype=torch.int32, device=dev), lo)
+                   for lo, size in CASE_RANGES[nranges]]
+        before = kcc.KERNEL.launches
+        out = fn(ms, lengths, G, sc_mode=sc_mode, rcounts=targets)
+        assert kcc.KERNEL.launches == before + (fn is kcc.case_count)
+        outs.append((list(out), [t for t, _ in targets]))
+    torch.cuda.synchronize()
+    return outs
+
+
+def _assert_case_equal(outs):
+    (got, got_rc), (want, want_rc) = outs
+    for f, g, w in zip(kcc.CaseCounts._fields, got, want):
+        assert torch.equal(g, w), f
+    for g, w in zip(got_rc, want_rc):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("branch,S,nranges,sc_mode,G", (
+    [(b, 16, 1, False, 12) for b in CASE_BRANCHES + ("dups", "all_big", "padding")]
+    + [("mixed", 16, 2, True, 12), ("dups", 300, 2, True, 12),
+       ("padding", 300, 1, False, 12), ("dups", 4096, 2, False, 12),
+       ("mixed", 4096, 1, True, 12), ("mixed", 300, 2, True, 5000)]))
+def test_case_count_kernel_matches_plain(cuda_device, branch, S, nranges, sc_mode, G):
+    """The rows of tests/test_torch_casecount.py (every branch of the case
+    table, duplicated slots, rows of only BIG, padding reads, widths 16,
+    300 and 4096, one and two rcount ranges, G = 5000): the kernel equals
+    its plain version exactly."""
+    cols = case_rows(S * 7 + nranges + G, 64, S, G, branch, id_space=CASE_IDS)
+    _assert_case_equal(_case_both(cols, G, sc_mode, nranges, cuda_device))
+
+
+@pytest.mark.parametrize("B,S", [(8192, 300), (64, 4096), (8192, 16)])
+@pytest.mark.parametrize("sc_mode", [False, True])
+def test_case_count_kernel_random_batches(cuda_device, B, S, sc_mode):
+    """A random batch at the gather engine's [8192, 300], the sort join's
+    widest [64, 4096] and its first [8192, 16]."""
+    cols = case_rows(B + S, B, S, 40, "mixed", id_space=CASE_IDS)
+    outs = _case_both(cols, 40, sc_mode, 2, cuda_device)
+    _assert_case_equal(outs)
+    assert int(outs[0][1][0].sum()) > 0
+
+
+def test_case_count_kernel_rows_past_its_stage(cuda_device):
+    """Rows of 20,000 slots, every slot valid: more than the 16,384 a block
+    stages, so the case flags and the rcount come from device memory."""
+    B, S, G = 4, 20_000, 12
+    rng = np.random.default_rng(5)
+    slots = rng.integers(0, 6000, (B, S)).astype(np.int32)
+    rid1 = np.full((B, S), 3, np.int32)
+    rid2 = np.zeros((B, S), np.int32)
+    rid1[1], rid2[1] = 3 + (slots[1] % 2), 0              # U = 2: conflict
+    rid1[2], rid2[2] = 3, np.where(slots[2] % 3 == 0, 4, 0)  # r* in every pair
+    pair3 = slots[3] % 3 == 0                                # r* in no pair
+    rid1[3], rid2[3] = np.where(pair3, 3, 5), np.where(pair3, 4, 0)
+    lengths = np.full(B, 60, np.int32)
+    outs = _case_both((slots, rid1, rid2, lengths), G, False, 1, cuda_device)
+    _assert_case_equal(outs)
+    (got, rc), _ = outs
+    assert got[0].tolist()[3] == 2 and int(got[3]) == 2
+    assert int(rc[0].sum()) == np.unique(slots[0]).size + np.unique(slots[2]).size
+
+
+def test_case_count_kernel_makes_no_host_sync(cuda_device):
+    """One launch with two rcount targets and a given counts buffer under
+    sync debug mode "error"; then equal to the plain version."""
+    G = 40
+    cols = case_rows(9, 8192, 300, G, "mixed", id_space=CASE_IDS)
+    slots, rid1, rid2, lengths = (torch.from_numpy(x).to(cuda_device) for x in cols)
+    ms = MatchSlots(slots, rid1, rid2, in_u=None)
+    outs = []
+    for fn in (kcc.case_count, kcc.case_count_plain):
+        buf = torch.zeros(2 * G + 2 + CASE_IDS, dtype=torch.int32, device=cuda_device)
+        rc = buf[2 * G + 2:]
+        if fn is kcc.case_count:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = fn(ms, lengths, G, sc_mode=True, counts=buf[:2 * G + 2],
+                     rcounts=((rc[:CASE_IDS // 2], 0), (rc[CASE_IDS // 2:], CASE_IDS // 2)))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        outs.append((buf, out.pair_lo, out.pair_hi))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    assert int(outs[0][0][2 * G + 2:].sum()) > 0
+
+
+def test_case_count_rejects_bad_inputs(cuda_device):
+    z = torch.zeros((4, 16), dtype=torch.int32, device=cuda_device)
+    ln = torch.zeros(4, dtype=torch.int32, device=cuda_device)
+    ms = MatchSlots(z, z, z, in_u=None)
+    before = kcc.KERNEL.launches
+    with pytest.raises(TypeError):
+        kcc.case_count(MatchSlots(z.long(), z, z, None), ln, 5)
+    with pytest.raises(ValueError):
+        kcc.case_count(ms, ln[:3], 5)
+    with pytest.raises(ValueError):
+        kcc.case_count(ms, ln, 5, rcounts=((ln, 0),) * 3)
+    with pytest.raises(ValueError):
+        kcc.case_count(ms, ln, 5, counts=torch.zeros(11, dtype=torch.int32,
+                                                     device=cuda_device))
+    with pytest.raises(ValueError):
+        kcc.case_count(ms, ln.cpu(), 5)
+    assert kcc.KERNEL.launches == before

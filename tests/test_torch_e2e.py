@@ -285,3 +285,50 @@ def test_device_build_cli_without_card_raises(pair_toy):
                   "-f", mapf, "-D", db, "-i", str(out / "index_u.npz"),
                   str(out / "index_d.npz")])
     assert not out.exists()
+
+
+def _tree_files(d):
+    """Every file under ``d``: .npy arrays as (dtype, shape, bytes), the
+    rest as bytes."""
+    out = {}
+    for name in sorted(os.listdir(d)):
+        path = os.path.join(d, name)
+        if name.endswith(".npy"):
+            a = np.load(path)
+            out[name] = (a.dtype.str, a.shape, a.tobytes())
+        else:
+            with open(path, "rb") as f:
+                out[name] = f.read()
+    return out
+
+
+def test_merged_artifact_cli_matches_jax_cli(pair_toy, tmp_path):
+    """``cli --build --merged DIR`` by both packages (the numpy engine, on
+    the CPU) writes the same artifact and meta files, and ``cli --query -i
+    DIR`` (the artifact path: ``QuerySession.from_artifact``) in Type-I
+    and Type-II mode writes ``cammiq_tpu.cli``'s files byte for byte, and
+    in quant mode its abundances within 1e-3 L1."""
+    _, mapf, db, _, fq = pair_toy
+    merged = {}
+    for who, main in (("port", lambda argv: cli_main(["--device", "cpu", *argv])),
+                      ("jax", jax_cli_main)):
+        d = tmp_path / who
+        main(["--build", *BUILD_FLAGS, "-f", mapf, "-D", db, "--engine", "numpy",
+              "-i", str(d / "index_u.npz"), str(d / "index_d.npz"),
+              "--merged", str(d / "merged")])
+        merged[who] = d / "merged"
+    want = _tree_files(merged["jax"])
+    assert "meta.json" in want and _tree_files(merged["port"]) == want
+    base = ["--query", "-f", mapf, "-i", str(merged["jax"]), "-q", fq, "-e", "0.01"]
+    for mode in ([], ["--read_cnts"], ["--read_cnts", "--doubly_unique"]):
+        ours, ref = tmp_path / "ours.out", tmp_path / "ref.out"
+        cli_main(["--device", "cpu", *base, *mode, "-o", str(ours)])
+        jax_cli_main([*base, *mode, "-o", str(ref)])
+        if mode:
+            assert ours.read_bytes() == ref.read_bytes(), mode
+            assert ours.read_text().startswith("QUERY/TAXID\t1000\t1001")
+        else:
+            got = {t: a for t, a, _ in parse_quant_output(str(ours))[0]["rows"]}
+            exp = {t: a for t, a, _ in parse_quant_output(str(ref))[0]["rows"]}
+            assert sorted(got) == sorted(exp) and len(exp) > 0
+            assert sum(abs(got[t] - exp[t]) for t in exp) <= 1e-3

@@ -212,3 +212,77 @@ def dist_fixture(seed: int = 5):
     rs = reads_from_arrays(reads, max_len=64)
     G = int(corpus.ref_id.max()) + 1
     return art, rs, G
+
+
+# ---- match slots for the case analysis (kernels/case_count.py)
+
+CASE_BRANCHES = ("undet", "u_only", "ud_in", "ud_out", "pair", "isect0",
+                 "isect1", "isect2", "u_many")
+SLOT_BIG = 2**31 - 1
+
+
+def _branch_payloads(rng, branch, G):
+    """The (rid1, rid2) payloads of one read's distinct matches for one
+    branch of the case table (rid2 = 0: a single)."""
+    a, b, c, d, e = (int(x) for x in rng.choice(np.arange(1, G), 5, replace=False))
+    pair = lambda x, y: (x, y) if rng.random() < 0.5 else (y, x)  # noqa: E731
+    return {
+        "undet": [],
+        "u_only": [(a, 0)],
+        "ud_in": [(a, 0), pair(a, b), pair(c, a)],
+        "ud_out": [(a, 0), pair(a, b), pair(c, d)],
+        "pair": [pair(a, b)] * int(rng.integers(1, 3)),
+        "isect0": [pair(a, b), pair(c, d)],
+        "isect1": [pair(a, b), pair(a, c), pair(e, a)],
+        # (x, x) is the smaller pair: a1 = b1 = x, both in every pair
+        "isect2": [(min(a, b),) * 2, pair(a, b)],
+        "u_many": [(a, 0), (b, 0)] + [pair(a, b)] * int(rng.integers(0, 2)),
+    }[branch]
+
+
+def case_rows(seed, B, S, G, branch="mixed", id_space=200_000, copies=3):
+    """int32 slots, rid1, rid2 [B, S] and lengths [B] whose reads take
+    ``branch`` of the case table (``CASE_BRANCHES``), or a random branch
+    each ("mixed"), "dups" (mixed, every entry in 2 to 4 columns),
+    "all_big" (every slot empty) or "padding" (mixed, a third of the reads
+    of length 0).  Each payload maps to 1 to ``copies`` entry ids, an id
+    may repeat in a read (equal ids carry equal payloads, as in the
+    engines' slots), ids lie in [0, id_space) and the empty columns (BIG)
+    carry garbage rids.  Rows wider than 64 also get many entries of one
+    payload, and the first row of a wide batch is full."""
+    rng = np.random.default_rng(seed)
+    slots = np.full((B, S), SLOT_BIG, np.int64)
+    rid1 = rng.integers(-5, 2 * G, (B, S))
+    rid2 = rng.integers(-5, 2 * G, (B, S))
+    lengths = rng.integers(40, 101, B)
+    by_payload = {}
+    free = rng.permutation(id_space)
+    nfree = 0
+    for r in range(B):
+        kind = branch
+        if branch in ("mixed", "dups", "padding"):
+            kind = CASE_BRANCHES[int(rng.integers(len(CASE_BRANCHES)))]
+        if branch == "all_big":
+            kind = "undet"
+        cols = []
+        for p in _branch_payloads(rng, kind, G):
+            ids = by_payload.setdefault(p, [])
+            want = int(rng.integers(1, copies + 1))
+            if S > 64 and rng.random() < 0.3:
+                want = int(rng.integers(1, S // 4 + 1))
+            for _ in range(want):
+                if not ids or rng.random() < 0.6:
+                    ids.append(int(free[nfree]))
+                    nfree += 1
+                reps = int(rng.integers(2, 5)) if branch == "dups" else 1
+                cols += [(ids[int(rng.integers(len(ids)))], p)] * reps
+        if S > 64 and r == 0 and kind != "undet":
+            cols = (cols * (S // max(len(cols), 1) + 1))[:S]
+        cols = cols[:S]
+        at = rng.choice(S, len(cols), replace=False)
+        for j, (i, (x, y)) in zip(at, cols):
+            slots[r, j], rid1[r, j], rid2[r, j] = i, x, y
+    if branch == "padding":
+        lengths[rng.random(B) < 1 / 3] = 0
+    return (slots.astype(np.int32), rid1.astype(np.int32), rid2.astype(np.int32),
+            lengths.astype(np.int32))

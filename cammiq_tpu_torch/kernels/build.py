@@ -146,9 +146,16 @@ def check_tensor(t, name: str, dtype, device, ndim: int | None = None) -> None:
 
 
 def stream_ptr(device) -> int:
+    """The raw handle of ``device``'s current stream (what
+    ``torch.cuda.current_stream(device).cuda_stream`` gives, without
+    building a Stream object: a few microseconds less a launch)."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return torch.cuda.current_stream(device).cuda_stream
+    index = device.index
+    return raw(torch.cuda.current_device() if index is None else index)
 
 
 VP = ctypes.c_void_p

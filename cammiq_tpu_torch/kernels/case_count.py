@@ -16,23 +16,31 @@ plain version.  Per read, over its distinct matched entries: U =
 
 and rcount[e] += 1 for every distinct entry e of every assigned read.
 
-Kernel: ``csrc/case_count.cu`` (see the source note), one block a read,
-one launch a batch, no host sync.  A CPU tensor takes the plain version; a
-CUDA tensor the kernel, which raises if it cannot build or launch.
+Kernel: ``csrc/case_count.cu`` (see the source note): a group of 8 to 32
+lanes a read and 256 / g reads a block on rows of up to 1024 slots, one
+block a read on wider ones; one launch a batch, no host sync.  A CPU
+tensor takes the plain version; a CUDA tensor the kernel, which raises if
+it cannot build or launch.  ``case_count_geometry`` reports the launch.
 """
 
 from __future__ import annotations
 
+import ctypes
+import struct
 from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
-from .build import I32, I64, VP, CudaKernel, check_tensor, stream_ptr
+from .build import I32, VP, CudaKernel, check_tensor, load, stream_ptr
 from .gather_probe import BIG
 
-KERNEL = CudaKernel("cammiq_case_count",
-                    [VP, VP, VP, VP, I32, I32, I32, I32, VP, VP, VP,
-                     VP, I64, I64, VP, I64, I64, VP])
+# the launcher's 18 arguments travel packed as int64 in one buffer:
+# ctypes converts one argument instead of 18, a few microseconds a call
+KERNEL = CudaKernel("cammiq_case_count_packed", [ctypes.c_char_p])
+_pack = struct.Struct("<18q").pack
+GEOMETRY_FIELDS = ("group_path", "lanes", "reads_per_block", "blocks",
+                   "threads", "registers", "resident_blocks_per_sm",
+                   "slots_per_load", "loads_per_lane", "shared_bytes")
 # rcount targets: (int32 [size] view, lo): view[e] counts entry id lo + e
 Targets = Sequence[Tuple[torch.Tensor, int]]
 
@@ -209,17 +217,38 @@ def case_count(ms, lengths: torch.Tensor, num_genome_slots: int,
     for out, lo in rcounts:
         check_tensor(out, "rcount", torch.int32, dev, 1)
         targets += [out.data_ptr(), int(lo), out.shape[0]]
-    targets += [None, 0, 0] * (2 - len(rcounts))
+    targets += [0, 0, 0] * (2 - len(rcounts))
     if counts is None:
         counts = torch.zeros(2 * G + 2, dtype=torch.int32, device=dev)
     check_tensor(counts, "counts", torch.int32, dev, 1)
     if counts.shape != (2 * G + 2,):
         raise ValueError(f"case_count: counts {tuple(counts.shape)} for G = {G}")
     pairs = torch.empty(2, B, dtype=torch.int32, device=dev)
-    KERNEL(slots.data_ptr(), rid1.data_ptr(), rid2.data_ptr(), lengths.data_ptr(),
-           B, S, G, int(sc_mode), counts.data_ptr(), pairs[0].data_ptr(),
-           pairs[1].data_ptr(), *targets, stream_ptr(dev))
+    p = pairs.data_ptr()
+    KERNEL(_pack(slots.data_ptr(), rid1.data_ptr(), rid2.data_ptr(),
+                 lengths.data_ptr(), B, S, G, int(sc_mode), counts.data_ptr(), p,
+                 p + 4 * B, *targets, stream_ptr(dev)))
     return _views(counts, G, pairs[0], pairs[1])
+
+
+def case_count_geometry(slots: torch.Tensor) -> dict:
+    """How ``case_count`` launches on int32 [B, S] CUDA ``slots``
+    (``GEOMETRY_FIELDS``): the path (group or a block a read), lanes a
+    read, reads and threads a block, blocks, the kernel's registers a
+    thread and resident blocks an SM, slots a load, loads a lane, static
+    and dynamic shared bytes a block."""
+    check_tensor(slots, "slots", torch.int32, slots.device, 2)
+    B, S = slots.shape
+    out = (ctypes.c_int * len(GEOMETRY_FIELDS))()
+    lib = load()
+    fn = lib.cammiq_case_count_geometry
+    fn.argtypes, fn.restype = [I32, I32, VP, ctypes.POINTER(ctypes.c_int)], ctypes.c_int
+    with torch.cuda.device(slots.device):
+        err = fn(B, S, slots.data_ptr(), out)
+    if err:
+        raise RuntimeError(f"cammiq_case_count_geometry: CUDA error {err}: "
+                           f"{lib.cammiq_error_string(err).decode()}")
+    return dict(zip(GEOMETRY_FIELDS, out))
 
 
 def case_count_traffic(ms, lengths: torch.Tensor, num_genome_slots: int,

@@ -17,11 +17,13 @@ first batch to its plain version and times it, device only (``device_ms``),
 also with both tables inside the L2 (``probe_times``).
 Then it warms up with one pass of each mode and times ``--passes`` quant
 and sc-mode passes in turns (host clock around ``QuerySession.run``, which
-ends in its blocking transfer), and last one more quant pass under
+ends in its blocking transfer).  Then it holds ``case_count`` on the first
+batch's slots (the engine's own width) to its plain version and times it:
+device only, wrapper included, and each of the wrapper's host steps
+(``case_count_times``).  Last, one more quant pass under
 ``torch.profiler`` (``profile_pass``).  Prints one JSON line: the
 checkout, the card, the session start, each pass's seconds, the median
-reads/s by mode, the profile and, for the gather engine, the kernel's
-times.
+reads/s by mode, the kernels' times and the profile.
 """
 
 from __future__ import annotations
@@ -113,6 +115,100 @@ def probe_times(sess, reads, reps: int) -> dict:
                                           for _ in range(reps)]}
 
 
+def host_us(fn, calls: int = 1000) -> float:
+    """Host microseconds a call of ``fn`` over `calls` back-to-back calls
+    (``time.perf_counter_ns``), after a warm-up call; the device is
+    synchronised before and after."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter_ns()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter_ns() - t) / calls / 1e3
+    torch.cuda.synchronize()
+    return us
+
+
+def batch_slots(sess, reads):
+    """The first batch's match slots as the session's engine gives them
+    to ``case_count``, with its lengths."""
+    import torch
+
+    dev = sess.device
+    codes = torch.from_numpy(reads.codes[:8192]).to(dev).contiguous()
+    lengths = torch.from_numpy(reads.lengths[:8192]).to(dev)
+    if sess.engine == "gather":
+        from cammiq_tpu_torch.query import classify as gc
+
+        return gc.collect_matches(sess.didx_u, sess.didx_d, codes, lengths), lengths
+    from cammiq_tpu_torch.query.sortjoin import collect_matches
+
+    return collect_matches(sess.dm, codes, lengths, sess.maxm, sess.frac).slots, lengths
+
+
+def case_count_times(sess, reads, reps: int) -> dict:
+    """``case_count`` on the first batch's slots, in quant mode with the
+    session's rcount target and counter buffer (as a pass calls it): equal
+    to its plain version in quant and sc mode; device-only ms `reps`
+    times; ms a call wrapper included (host clock over 1000 calls); the
+    host microseconds of each of the wrapper's steps (the stream handle
+    and the pair pointers also in their slower forms, through a Stream
+    object and two row views; the ctypes call with its 18 arguments
+    packed into one buffer where the checkout packs them); and the launch
+    geometry where the checkout reports one."""
+    import torch
+
+    from cammiq_tpu_torch.kernels import build
+    from cammiq_tpu_torch.kernels import case_count as kcc
+
+    ms, lengths = batch_slots(sess, reads)
+    dev, G = lengths.device, sess.num_genome_slots
+    B = lengths.shape[0]
+    equal = True
+    for sc in (False, True):
+        outs = []
+        for fn in (kcc.case_count, kcc.case_count_plain):
+            rc = torch.zeros(sess._rc_size, dtype=torch.int32, device=dev)
+            outs.append((*fn(ms, lengths, G, sc_mode=sc, rcounts=((rc, 0),)), rc))
+        equal &= all(torch.equal(a, b) for a, b in zip(*outs))
+    rc = torch.zeros(sess._rc_size, dtype=torch.int32, device=dev)
+    counts = torch.zeros(2 * G + 2, dtype=torch.int32, device=dev)
+    call = lambda: kcc.case_count(ms, lengths, G, rcounts=((rc, 0),),  # noqa: E731
+                                  counts=counts)
+    out = {"shape": list(ms.slots.shape), "equals_plain": bool(equal),
+           "device_ms": [device_ms(call) for _ in range(reps)],
+           "wrapper_ms": host_us(call) / 1e3}
+    geometry = getattr(kcc, "case_count_geometry", None)
+    if geometry is not None:
+        out["geometry"] = geometry(ms.slots)
+    pairs = torch.empty(2, B, dtype=torch.int32, device=dev)
+    args = (ms.slots.data_ptr(), ms.rid1.data_ptr(), ms.rid2.data_ptr(),
+            lengths.data_ptr(), B, ms.slots.shape[1], G, 0, counts.data_ptr(),
+            pairs.data_ptr(), pairs.data_ptr() + 4 * B, rc.data_ptr(), 0,
+            rc.shape[0], 0, 0, 0, build.stream_ptr(dev))
+    pack = getattr(kcc, "_pack", None)      # the 18 arguments as one buffer
+    tensors = (ms.slots, ms.rid1, ms.rid2, lengths, rc, counts)
+    steps = {
+        "check_tensor x6": lambda: [build.check_tensor(t, "t", torch.int32, dev)
+                                    for t in tensors],
+        "torch.empty(2, B)": lambda: torch.empty(2, B, dtype=torch.int32, device=dev),
+        "pairs[0].data_ptr(), pairs[1].data_ptr()":
+            lambda: (pairs[0].data_ptr(), pairs[1].data_ptr()),
+        "pairs.data_ptr() + 4 B": lambda: (pairs.data_ptr(), pairs.data_ptr() + 4 * B),
+        "current_stream(dev).cuda_stream":
+            lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "stream_ptr(dev)": lambda: build.stream_ptr(dev),
+        "the ctypes call and launch": (lambda: kcc.KERNEL(pack(*args))) if pack
+        else (lambda: kcc.KERNEL(*args)),
+        "the returned views": lambda: kcc._views(counts, G, pairs[0], pairs[1]),
+        "whole wrapper": call,
+    }
+    out["wrapper_steps_us"] = {k: host_us(f) for k, f in steps.items()}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--repo", required=True, help="checkout to import the port from")
@@ -177,6 +273,7 @@ def main(argv=None) -> int:
                 passes[mode].append(time.perf_counter() - t)
     result.update(pass_s=passes, reads_per_s={
         m: reads.num_reads / statistics.median(p) for m, p in passes.items()})
+    result["case_count"] = case_count_times(sess, reads, reps=5)
     prof = profile_pass(lambda: sess.run(reads))
     result["profile"] = {**prof, "lines": prof["lines"][:10]}
     print(json.dumps(result))

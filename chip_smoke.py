@@ -25,7 +25,8 @@ nothing of JAX or of the JAX package, and exits nonzero if any phase fails:
    scan exactly, case_count's counts, pairs and rcount exactly on the
    batch's [8192, maxm] slots in quant and sc mode; median CUDA-event
    times of both beside the kernel's bound, and the kernel's device-only
-   time;
+   time (case_count's launch geometry on a line of its own: lanes a read,
+   reads a block, blocks, registers, resident blocks an SM);
 4. toy end to end through the CLI (5 x 2000 bp genomes, 4000 simulated
    reads, index built on cuda): quant abundances within 0.01 of the truth
    for all 5 genomes, a Type-I file identical to the one the CPU path
@@ -60,8 +61,9 @@ nothing of JAX or of the JAX package, and exits nonzero if any phase fails:
    kernels against both, the slots concatenated as a row's all_gather
    gives them, then case_count (counts and rcount): counts equal the
    unsharded session's; each query kernel at the shard's shapes against
-   its plain version, timed beside its whole-index time (launch counters
-   zeroed before (a)'s pass and (b)'s batches, read after);
+   its plain version, timed beside its whole-index time, and case_count
+   at the concatenated [8192, 2 x maxm] (launch counters zeroed before
+   (a)'s pass and (b)'s batches, read after);
 9. the gather engine at config-#3 scale (query/classify.py, kernel
    gather_probe): QuerySession(engine="gather") on cuda from the npz pair
    phase 2 saved (the time of the unique table's probe-run check at
@@ -76,7 +78,8 @@ nothing of JAX or of the JAX package, and exits nonzero if any phase fails:
    engines in turns (reads/s of each), then one gather pass under the
    profiler (device operations a batch, busy share); DistQuerySession on a world of one NCCL rank and two
    FlatIndex shards on the one card, their slots concatenated: every count
-   equal to the single-device gather's;
+   equal to the single-device gather's, and case_count against its plain
+   version at the twin's concatenated [8192, 600];
 10. toy Type-II through the CLI: 5 genomes x 2000 bp with a 300 bp segment
    planted in each pair of neighbours, indexed by `--build --device cuda`
    and by `--build --device cpu` (files must be equal), then a Type-II file
@@ -192,6 +195,13 @@ KERNEL_INFO = {
                    "cammiq_tpu/query/classify.py:160", "quant"),
     "case_count@gather": ("cammiq_tpu_torch/csrc/case_count.cu",
                           "cammiq_tpu/query/classify.py:160", "gather"),
+    # the grid's widths: two shards' slots concatenated, [8192, 2 x maxm]
+    # (phase 8b) and the gather twin's [b, 600] (phase 9)
+    "case_count@shards": ("cammiq_tpu_torch/csrc/case_count.cu",
+                          "cammiq_tpu/query/classify.py:160", "shards"),
+    "case_count@gather_shards": ("cammiq_tpu_torch/csrc/case_count.cu",
+                                 "cammiq_tpu/query/classify.py:160",
+                                 "gather_shards"),
 }
 # the kernels each driven path must launch
 SORTJOIN_KERNELS = ("first_of_run", "probe_bloom", "cuckoo_verify", "case_count")
@@ -646,6 +656,19 @@ class TwoGatherShards:
                          "table_rows": self.su.table_start.shape[1],
                          "max_probes": (self.su.max_probes, self.sd.max_probes)}
 
+    def slots(self, c, ln):
+        """The batch's slots against both shards, concatenated: [b, 600]."""
+        import torch
+
+        from cammiq_tpu_torch.query import classify as gc
+
+        su, sd = self.su, self.sd
+        mss = [gc.collect_matches(du, dd, c, ln, m * su.e_pad,
+                                  2 * su.e_pad + m * sd.e_pad)
+               for m, (du, dd) in enumerate(self.shards)]
+        return gc.MatchSlots(*(torch.cat([getattr(x, f) for x in mss], 1)
+                               for f in gc.MatchSlots._fields))
+
     def classify(self, codes, lengths):
         import types
 
@@ -657,11 +680,7 @@ class TwoGatherShards:
         su, sd = self.su, self.sd
         c = torch.from_numpy(codes).to(self.device).contiguous()
         ln = torch.from_numpy(lengths).to(self.device)
-        mss = [gc.collect_matches(du, dd, c, ln, m * su.e_pad,
-                                  2 * su.e_pad + m * sd.e_pad)
-               for m, (du, dd) in enumerate(self.shards)]
-        ms = gc.MatchSlots(*(torch.cat([getattr(x, f) for x in mss], 1)
-                             for f in gc.MatchSlots._fields))
+        ms = self.slots(c, ln)
         rcs = [torch.zeros(2 * s.e_pad, dtype=torch.int32, device=self.device)
                for s in (su, sd)]
         cc = gc.case_count(ms, ln, self.G, sc_mode=True,
@@ -771,10 +790,13 @@ class Smoke:
             f"{traffic['rid_sectors']} 32-byte sectors of each rid array, "
             f"{traffic['rcount_touched']} rcount elements touched; counts, "
             f"pairs and rcount equal the plain version's in quant and sc mode")
+        geometry = kcc.case_count_geometry(ms.slots)
+        log(f"{name} launch geometry: {geometry}")
         self.compare(name, kcc.case_count, kcc.case_count_plain, (ms, lengths, G),
                      bound(traffic["bytes"], traffic["ops"]), plain_reps=(5, 5, 1),
                      rcounts=((rc, 0),))
         self.kernels[name]["max_abs_err"] = max(err, self.kernels[name]["max_abs_err"])
+        self.kernels[name]["geometry"] = geometry
 
     # ---- 1. header + kernel and native builds
     def header(self):
@@ -1698,6 +1720,7 @@ class Smoke:
             for mt in mts:
                 acc["ovs"] += mt.overflow_slots
                 acc["ovh"] += mt.overflow_hits
+            return slots
 
         zero_counts()
         for b in reads.batches(BATCH):
@@ -1720,10 +1743,12 @@ class Smoke:
             f"concatenated: counts equal the unsharded session's; launches "
             f"{out['two_shard_launches']}")
         # each kernel at the second shard's shapes, beside its time on the
-        # whole index
+        # whole index; case_count at the row's concatenated width
         codes = torch.from_numpy(reads.codes[:BATCH]).to(dev).contiguous()
         lengths = torch.from_numpy(reads.lengths[:BATCH]).to(dev)
         captured = capture_kernel_calls(lambda: batch(codes, lengths))
+        self.case_count_vs_plain("case_count@shards", batch(codes, lengths),
+                                 lengths, G, art.eu + art.ed)
         pb_args, (_, _, n) = captured["probe_bloom"]
         cv_args, cv_out = captured["cuckoo_verify"]
         fr_args, _ = captured["first_of_run_scan"]
@@ -1871,6 +1896,8 @@ class Smoke:
         shard_counts = accumulate_gather(twin.classify, reads, G)
         out["two_shard_launches"] = read_counts("gather_shards", self.results)
         self.check_gather(shard_counts, counts, sc, "two shards")
+        self.case_count_vs_plain("case_count@gather_shards", twin.slots(codes, lengths),
+                                 lengths, G, 2 * (twin.su.e_pad + twin.sd.e_pad))
         log(f"gather twin: 1 x 1 NCCL grid (start {out['grid_session_start_s']:.1f} "
             f"s, launches {out['grid_launches']}) and two shards (built in "
             f"{out['two_shard_build_s']:.1f} s, {twin.geometry}, launches "

@@ -39,7 +39,7 @@ from cammiq_tpu_torch.query.sortjoin import (TorchMergedIndex, classify_batch,
 from torch_fixture import (ALPHA, CASE_BRANCHES, by_entry_key, case_rows,
                            dist_fixture, end_run_table, flat_table, gather_tables,
                            large_bucket_index, pair_corpus, pair_genomes,
-                           pair_reads, planted_reads)
+                           pair_reads, planted_reads, strain_index, strain_reads)
 
 pytestmark = pytest.mark.cuda
 
@@ -935,49 +935,166 @@ def _assert_case_equal(outs):
         assert torch.equal(g, w)
 
 
+# widths around the group path's lane counts (8, 16, 32), its 16-byte
+# loads, its last width (1024) and the block path past it
+CASE_WIDTHS = (1, 7, 8, 15, 16, 17, 31, 32, 33, 300, 600, 1024, 1025, 4096)
+
+
 @pytest.mark.parametrize("branch,S,nranges,sc_mode,G", (
     [(b, 16, 1, False, 12) for b in CASE_BRANCHES + ("dups", "all_big", "padding")]
     + [("mixed", 16, 2, True, 12), ("dups", 300, 2, True, 12),
        ("padding", 300, 1, False, 12), ("dups", 4096, 2, False, 12),
-       ("mixed", 4096, 1, True, 12), ("mixed", 300, 2, True, 5000)]))
+       ("mixed", 4096, 1, True, 12), ("mixed", 300, 2, True, 5000)]
+    + [(b, S, 1 + S % 2, S % 3 == 0, 12) for S in CASE_WIDTHS
+       if S not in (16, 300, 4096) for b in ("mixed", "dups")]))
 def test_case_count_kernel_matches_plain(cuda_device, branch, S, nranges, sc_mode, G):
     """The rows of tests/test_torch_casecount.py (every branch of the case
-    table, duplicated slots, rows of only BIG, padding reads, widths 16,
-    300 and 4096, one and two rcount ranges, G = 5000): the kernel equals
-    its plain version exactly."""
+    table, duplicated slots, rows of only BIG, padding reads, one and two
+    rcount ranges, G = 5000) at every width of ``CASE_WIDTHS``: the kernel
+    equals its plain version exactly."""
     cols = case_rows(S * 7 + nranges + G, 64, S, G, branch, id_space=CASE_IDS)
     _assert_case_equal(_case_both(cols, G, sc_mode, nranges, cuda_device))
 
 
-@pytest.mark.parametrize("B,S", [(8192, 300), (64, 4096), (8192, 16)])
+@pytest.mark.parametrize("B,S", [(8192, 300), (64, 4096), (8192, 16), (1, 16),
+                                 (15, 300), (8193, 16), (8193, 300), (15, 7),
+                                 (8193, 33), (1, 1025)])
 @pytest.mark.parametrize("sc_mode", [False, True])
 def test_case_count_kernel_random_batches(cuda_device, B, S, sc_mode):
     """A random batch at the gather engine's [8192, 300], the sort join's
-    widest [64, 4096] and its first [8192, 16]."""
+    widest [64, 4096] and its first [8192, 16], and at batches of 1, 15 and
+    8193 reads, which fill no block of the group path (256 / g reads a
+    block)."""
     cols = case_rows(B + S, B, S, 40, "mixed", id_space=CASE_IDS)
     outs = _case_both(cols, 40, sc_mode, 2, cuda_device)
     _assert_case_equal(outs)
-    assert int(outs[0][1][0].sum()) > 0
+    if B > 1:
+        assert int(outs[0][1][0].sum()) > 0
 
 
-def test_case_count_kernel_rows_past_its_stage(cuda_device):
-    """Rows of 20,000 slots, every slot valid: more than the 16,384 a block
-    stages, so the case flags and the rcount come from device memory."""
-    B, S, G = 4, 20_000, 12
+@pytest.mark.parametrize("S,valid,ids", [(20_000, 20_000, 6000), (300, 63, 48),
+                                         (300, 64, 48), (300, 65, 48),
+                                         (1024, 1000, 700), (4096, 65, 48)])
+def test_case_count_kernel_rows_past_its_stage(cuda_device, S, valid, ids):
+    """Rows of `valid` valid slots of S, ids drawn from `ids` values (so
+    repeated): around the 64 entries a 32-lane group stages (63, 64, 65),
+    far past it (1000), and 20,000, past the 16,384 a block of the block
+    path stages, where the case flags and the rcount come from device
+    memory."""
+    B, G = 4, 12
     rng = np.random.default_rng(5)
-    slots = rng.integers(0, 6000, (B, S)).astype(np.int32)
+    slots = rng.integers(0, ids, (B, S)).astype(np.int32)
     rid1 = np.full((B, S), 3, np.int32)
     rid2 = np.zeros((B, S), np.int32)
     rid1[1], rid2[1] = 3 + (slots[1] % 2), 0              # U = 2: conflict
     rid1[2], rid2[2] = 3, np.where(slots[2] % 3 == 0, 4, 0)  # r* in every pair
     pair3 = slots[3] % 3 == 0                                # r* in no pair
     rid1[3], rid2[3] = np.where(pair3, 3, 5), np.where(pair3, 4, 0)
+    if valid < S:
+        for r in range(B):
+            slots[r, rng.choice(S, S - valid, replace=False)] = kcc.BIG
     lengths = np.full(B, 60, np.int32)
     outs = _case_both((slots, rid1, rid2, lengths), G, False, 1, cuda_device)
     _assert_case_equal(outs)
     (got, rc), _ = outs
     assert got[0].tolist()[3] == 2 and int(got[3]) == 2
-    assert int(rc[0].sum()) == np.unique(slots[0]).size + np.unique(slots[2]).size
+    distinct = [np.unique(slots[r][slots[r] < kcc.BIG]).size for r in (0, 2)]
+    assert int(rc[0].sum()) == sum(distinct)
+
+
+@pytest.mark.parametrize("B,S,want", [
+    (8192, 16, dict(group_path=1, lanes=16, reads_per_block=16, blocks=512,
+                    slots_per_load=1)),
+    (8192, 300, dict(group_path=1, lanes=32, reads_per_block=8, blocks=1024,
+                     slots_per_load=4, loads_per_lane=3)),
+    (15, 7, dict(group_path=1, lanes=8, reads_per_block=32, blocks=1)),
+    (8193, 33, dict(group_path=1, lanes=32, blocks=1025, slots_per_load=1,
+                    loads_per_lane=2)),
+    (3, 1024, dict(group_path=1, lanes=32, slots_per_load=4, loads_per_lane=8)),
+    (3, 1025, dict(group_path=0, reads_per_block=1, blocks=3)),
+    (64, 4096, dict(group_path=0, threads=256, blocks=64))])
+def test_case_count_geometry(cuda_device, B, S, want):
+    """The launch the wrapper makes: lanes a read, reads a block, blocks,
+    16-byte loads where the row allows, the block path past 1024 slots;
+    every kernel fits at least one block an SM."""
+    slots = torch.zeros((B, S), dtype=torch.int32, device=cuda_device)
+    geo = kcc.case_count_geometry(slots)
+    assert {k: geo[k] for k in want} == want
+    assert geo["registers"] > 0 and geo["resident_blocks_per_sm"] >= 1
+
+
+def test_case_count_kernel_unaligned_rows(cuda_device):
+    """Rows that start 4 bytes past a 16-byte boundary take 4-byte loads,
+    and equal the plain version."""
+    cols = case_rows(17, 1000, 300, 40, "dups", id_space=CASE_IDS)
+    base = torch.empty(1000 * 300 + 1, dtype=torch.int32, device=cuda_device)
+    slots = base[1:].view(1000, 300)
+    slots.copy_(torch.from_numpy(cols[0]))
+    assert kcc.case_count_geometry(slots)["slots_per_load"] == 1
+    rid1, rid2, lengths = (torch.from_numpy(x).to(cuda_device) for x in cols[1:])
+    ms = MatchSlots(slots, rid1, rid2, in_u=None)
+    outs = []
+    for fn in (kcc.case_count, kcc.case_count_plain):
+        rc = torch.zeros(CASE_IDS, dtype=torch.int32, device=cuda_device)
+        outs.append((list(fn(ms, lengths, 40, sc_mode=True, rcounts=((rc, 0),))), [rc]))
+    _assert_case_equal(outs)
+
+
+def test_case_count_kernel_on_a_side_stream(cuda_device):
+    """The launch goes to the caller's current stream: queued there behind
+    a sleep, it has not yet written the counts when the default stream
+    reads them, and it then equals the plain version."""
+    G = 40
+    cols = case_rows(23, 8192, 300, G, "mixed", id_space=CASE_IDS)
+    slots, rid1, rid2, lengths = (torch.from_numpy(x).to(cuda_device) for x in cols)
+    ms = MatchSlots(slots, rid1, rid2, in_u=None)
+    counts = torch.zeros(2 * G + 2, dtype=torch.int32, device=cuda_device)
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(200_000_000)
+        kcc.case_count(ms, lengths, G, counts=counts)
+    early = counts.clone()
+    torch.cuda.synchronize()
+    assert int(early.abs().sum()) == 0
+    want = kcc.case_count_plain(ms, lengths, G)
+    assert torch.equal(counts, torch.cat([want.cnts_u, want.cnts_d,
+                                          want.nundet[None], want.nconf[None]]))
+
+
+@pytest.fixture(scope="module")
+def strain_db():
+    """The strain database (``torch_fixture.strain_index``) and 2048 of
+    its reads."""
+    art, gs, G = strain_index()
+    return art, strain_reads(gs, 3, 2048), G
+
+
+@pytest.mark.parametrize("sc_mode", [False, True])
+@pytest.mark.parametrize("engine", ["sortjoin", "gather"])
+def test_case_count_kernel_on_strain_slots(cuda_device, strain_db, engine, sc_mode):
+    """The kernel against its plain version on the slots each engine's
+    session on the card gives the strain database's reads, where a third
+    of the reads hold a genome pair (P >= 1)."""
+    art, rs, G = strain_db
+    sess = QuerySession(art.unique_index, art.doubly_index, G,
+                        QueryConfig(h=art.unique_index.h, batch_size=2048),
+                        device="cuda", engine=engine)
+    codes = torch.from_numpy(rs.codes).to(cuda_device).contiguous()
+    lengths = torch.from_numpy(rs.lengths).to(cuda_device)
+    if engine == "gather":
+        ms = tgc.collect_matches(sess.didx_u, sess.didx_d, codes, lengths)
+    else:
+        ms = collect_matches(sess.dm, codes, lengths, sess.maxm, sess.frac).slots
+    assert float(((ms.slots < kcc.BIG) & (ms.rid2 != 0)).any(1).float().mean()) > 0.25
+    outs = []
+    for fn in (kcc.case_count, kcc.case_count_plain):
+        rc = torch.zeros(sess._rc_size, dtype=torch.int32, device=cuda_device)
+        outs.append((list(fn(ms, lengths, G, sc_mode=sc_mode, rcounts=((rc, 0),))),
+                     [rc]))
+    torch.cuda.synchronize()
+    _assert_case_equal(outs)
+    assert int(outs[0][1][0].sum()) > 0
 
 
 def test_case_count_kernel_makes_no_host_sync(cuda_device):

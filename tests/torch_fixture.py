@@ -286,3 +286,76 @@ def case_rows(seed, B, S, G, branch="mixed", id_space=200_000, copies=3):
         lengths[rng.random(B) < 1 / 3] = 0
     return (slots.astype(np.int32), rid1.astype(np.int32), rid2.astype(np.int32),
             lengths.astype(np.int32))
+
+
+# ---- strain families (tests/test_realistic.py's generator, cut in size:
+# a tenth of its families, a fifth of its genome length, its strain-private
+# segments scaled with it)
+
+STRAIN_RATES = (0.05, 0.01, 0.002, 0.001)   # per strain: 95% .. 99.9% ANI
+FAMILIES = 3
+UNRELATED = 4
+GLEN = 4000
+BACKBONE = 600         # shared by every third genome
+PRIVATE_SEGS = 3
+PRIVATE_LEN = 60
+STRAIN_BUILD = dict(k=21, L=100, Lmax=40, h=21, mode="both")
+
+
+def mutate(rng, seq, rate):
+    """Substitutions at `rate` plus a few strain-private segments
+    (``tests/test_realistic.py:_mutate``): real strains differ by gene
+    content as well as SNPs, and the private islands are what makes very
+    close strains identifiable at all."""
+    v = seq.copy()
+    m = int(round(rate * v.shape[0]))
+    if m:
+        pos = rng.choice(v.shape[0], size=m, replace=False)
+        v[pos] = (v[pos] + rng.integers(1, 4, size=m)) % 4
+    for _ in range(PRIVATE_SEGS):
+        at = int(rng.integers(0, v.shape[0] - PRIVATE_LEN))
+        v[at : at + PRIVATE_LEN] = rng.integers(0, 4, size=PRIVATE_LEN)
+    return v
+
+
+def strain_genomes():
+    """int base codes of FAMILIES x len(STRAIN_RATES) strains (each a
+    mutation of its family's ancestor) and UNRELATED random genomes, GLEN
+    bases each, with a BACKBONE shared by every third genome (content in
+    more than two genomes enters neither table but shapes the
+    conflicts)."""
+    rng = np.random.default_rng(11)
+    bb = rng.integers(0, 4, size=BACKBONE)
+    gs = []
+    for _ in range(FAMILIES):
+        anc = rng.integers(0, 4, size=GLEN)
+        gs += [mutate(rng, anc, rate) for rate in STRAIN_RATES]
+    gs += [rng.integers(0, 4, size=GLEN) for _ in range(UNRELATED)]
+    for gi in range(0, len(gs), 3):
+        at = int(rng.integers(0, GLEN - BACKBONE))
+        gs[gi][at : at + BACKBONE] = bb
+    return gs
+
+
+def strain_reads(gs, seed, n):
+    """A ReadSet of n 100-base reads of both strands sampled uniformly
+    from the genomes with 1% substitutions (the bench sampler,
+    ``tools/benchdata.py:sample_read_batch``)."""
+    from cammiq_tpu_torch.tools.benchdata import sample_read_batch
+
+    rng = np.random.default_rng(seed)
+    codes, lengths = sample_read_batch(rng, [[ALPHA[g].tobytes()] for g in gs], n)
+    return ReadSet(codes=codes, lengths=lengths, total_len=int(lengths.sum()),
+                   name="strains")
+
+
+def strain_index():
+    """(BuildArtifacts, genomes, number of genome slots) of
+    ``strain_genomes``, built by the port's numpy host engine with
+    ``tests/test_realistic.py``'s k, L, Lmax and h."""
+    from cammiq_tpu_torch.index.builder import build_index
+
+    gs = strain_genomes()
+    corpus = corpus_from_sequences([[ALPHA[g].tobytes()] for g in gs])
+    art = build_index(corpus, BuildConfig(**STRAIN_BUILD), engine="numpy")
+    return art, gs, len(gs) + 1

@@ -73,6 +73,10 @@ struct MaxOp {
 struct SumOp {
   __device__ unsigned operator()(unsigned a, unsigned b) const { return a + b; }
 };
+// identity 0xFFFFFFFF; exact on the non-negative int32 values it scans
+struct MinOp {
+  __device__ unsigned operator()(unsigned a, unsigned b) const { return a < b ? a : b; }
+};
 
 // Exclusive prefix of tile t under `op` (identity `identity`): the values
 // of tiles t-1, t-2, ... combined back to and including the nearest

@@ -8,8 +8,12 @@ unless named ``*_text``; ``lcp`` is int32 [n+1] with lcp[0] = lcp[n] = 0.
                the first-of-run scan (``kernels/first_of_run.py``) in index
                mode, forward and reverse
   compute_gsa  genome of each rank (``torch.searchsorted``, side right)
-  unique_lcp0, doubly_lcp0, min_unique
-               segmented minima and scatters (``ops/scans.py``)
+  unique_lcp0, doubly_lcp0
+               the runs' segmented minima of lcp, forward and reverse
+               (``ops/scans.py``: one launch each of
+               ``kernels/segmented_min.py``'s scan, no flipped copies),
+               and the elementwise epilogue
+  min_unique   a scatter-min to text order
   occ_unique, occ_doubly
                the OCC walks (``kernels/occ_count.py``), scattered to
                text order

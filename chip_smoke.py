@@ -8,7 +8,7 @@ C++ compiler with OpenMP.  It builds everything from this checkout, imports
 nothing of JAX or of the JAX package, and exits nonzero if any phase fails:
 
 1. header: the card's name and power limit, torch/CUDA/nvcc versions; the
-   seven CUDA kernels and the native host library are compiled (build
+   eight CUDA kernels and the native host library are compiled (build
    seconds printed);
 2. set-up: the config-#3-shape index (the bench generator,
    tools/benchdata.py: 1000 genomes x 300 kb, k=26 L=100 Lmax=50 h=26),
@@ -91,7 +91,9 @@ nothing of JAX or of the JAX package, and exits nonzero if any phase fails:
    minutes); stage seconds of both are printed;
 12. build kernels against their plain versions on the config-#3 build's own
    tensors (recomputed from the corpus): first_of_run at the build's n in
-   full, in index and value mode, forward and reverse; lcp_pairs and
+   full, in index and value mode, forward and reverse; segmented_min at
+   the build's n in full on its lcp and run starts (forward) and ends
+   (reverse, on lcp[1:n+1]), as the LCP0 stages call it; lcp_pairs and
    occ_count (unique and doubly) timed at full n (lcp_pairs also with
    clamp 32, its thread phase alone), and, with their plain
    versions, on a contiguous slice of 2^24 ranks around the longest LCP
@@ -103,10 +105,10 @@ nothing of JAX or of the JAX package, and exits nonzero if any phase fails:
    (b) SA-IS (bounded_sa=False) at BUILD_CHECK_GENOMES genomes, (c) the
    cross-host build of 2 slices in worker processes at DIST_GENOMES
    genomes against the cuda build with num_groups=2; each index, its ulm
-   counts and meta files identical, the first_of_run, lcp_pairs and
-   occ_count launches of phase 11's cuda build required; stage seconds
-   beside the cuda build's and the cross-host build's peak RSS per worker
-   printed (run after phase 11, before phase 12);
+   counts and meta files identical, the first_of_run, segmented_min,
+   lcp_pairs and occ_count launches of phase 11's cuda build required;
+   stage seconds beside the cuda build's and the cross-host build's peak
+   RSS per worker printed (run after phase 11, before phase 12);
 14. index formats on the card (last): (a) the bench generator at
    DIST_GENOMES genomes built on cuda (k=26 L=100 Lmax=50 h=26), both
    tables written in the reference's .bin1/.bin2 format and read back
@@ -187,6 +189,12 @@ KERNEL_INFO = {
                   "cammiq_tpu/ops/lcp.py:90", "build"),
     "occ_count": ("cammiq_tpu_torch/csrc/occ_count.cu",
                   "cammiq_tpu/index/unique_jax.py:132", "build"),
+    # XLA work, not a Pallas kernel: the LCP0 stages' segmented minima,
+    # forward (on lcp[:n] and the run starts) and reverse (lcp[1:n+1], ends)
+    "segmented_min": ("cammiq_tpu_torch/csrc/segmented_min.cu",
+                      "cammiq_tpu/ops/scans_jax.py:16", "build"),
+    "segmented_min@rev": ("cammiq_tpu_torch/csrc/segmented_min.cu",
+                          "cammiq_tpu/ops/scans_jax.py:36", "build"),
     "gather_probe": ("cammiq_tpu_torch/csrc/gather_probe.cu",
                      "cammiq_tpu/query/probe.py:129", "gather"),
     # XLA-fused work, not a Pallas kernel: case_analysis + rcounts_from_case,
@@ -211,8 +219,8 @@ PATH_KERNELS = {
     "typeII": SORTJOIN_KERNELS,
     "grid": SORTJOIN_KERNELS,
     "shards": SORTJOIN_KERNELS,
-    "build": ("first_of_run", "lcp_pairs", "occ_count"),
-    "build_check": ("first_of_run", "lcp_pairs", "occ_count"),
+    "build": ("first_of_run", "segmented_min", "lcp_pairs", "occ_count"),
+    "build_check": ("first_of_run", "segmented_min", "lcp_pairs", "occ_count"),
     "gather": GATHER_KERNELS,
     "gather_grid": GATHER_KERNELS,
     "gather_shards": GATHER_KERNELS,
@@ -297,6 +305,11 @@ def bound_first_of_run(is_start, *values) -> dict:
     written, or in index mode the int32 index written."""
     n, nv = is_start.numel(), len(values)
     return bound(n + (8 * nv if nv else 4) * n)
+
+
+def bound_segmented_min(v, flags) -> dict:
+    """4 bytes of value and 1 of flag read, 4 bytes written an element."""
+    return bound(9 * v.numel())
 
 
 def bound_probe_bloom(codes, bloom, h, blog, n) -> dict:
@@ -440,11 +453,12 @@ def bound_occ_doubly(lcp, lcp0, gsa, g2, ulmax, end_excl) -> dict:
 def kernel_counters() -> dict:
     from cammiq_tpu_torch.kernels import (case_count, cuckoo_verify,
                                           first_of_run, gather_probe, lcp_pairs,
-                                          occ_count, probe_bloom)
+                                          occ_count, probe_bloom, segmented_min)
 
     return {"first_of_run": first_of_run.KERNEL,
             "probe_bloom": probe_bloom.KERNEL,
             "cuckoo_verify": cuckoo_verify.KERNEL,
+            "segmented_min": segmented_min.KERNEL,
             "lcp_pairs": lcp_pairs.KERNEL, "occ_count": occ_count.KERNEL,
             "gather_probe": gather_probe.KERNEL,
             "case_count": case_count.KERNEL}
@@ -740,7 +754,12 @@ class Smoke:
         from cammiq_tpu_torch.tools.pass_bench import device_ms
 
         got = kern(*args, **kw)
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
         want = plain(*args, **kw)
+        e.record()
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
@@ -751,7 +770,9 @@ class Smoke:
                    for g, w in zip(got, want))
         ms = cuda_median_ms(lambda: kern(*args, **kw), *reps)
         dev_ms = device_ms(lambda: kern(*args, **kw), max(reps[1], 5))
-        plain_ms = cuda_median_ms(lambda: plain(*args, **kw), *plain_reps)
+        # one timed call, no warm-up: the checking call above is that call
+        plain_ms = (s.elapsed_time(e) if tuple(plain_reps) == (1, 1, 0) else
+                    cuda_median_ms(lambda: plain(*args, **kw), *plain_reps))
         shape = [tuple(a.shape) for a in args if torch.is_tensor(a)]
         dev = (f"{dev_ms:.4f} ms, {100 * bnd['bound_ms'] / dev_ms:.1f}% of bound"
                if dev_ms else "not measured: the host outran the sleep")
@@ -1503,6 +1524,7 @@ class Smoke:
         from cammiq_tpu_torch.kernels import first_of_run as kfr
         from cammiq_tpu_torch.kernels import lcp_pairs as klcp
         from cammiq_tpu_torch.kernels import occ_count as kocc
+        from cammiq_tpu_torch.kernels import segmented_min as ksm
         from cammiq_tpu_torch.ops.sa import suffix_array
         from cammiq_tpu_torch.tools.benchdata import (BENCH_GENOMES, BENCH_GLEN,
                                                       gen_genomes)
@@ -1532,6 +1554,12 @@ class Smoke:
             self.compare(f"first_of_run@build_n values {tag}", kfr.first_of_run_scan,
                          kfr.first_of_run_scan_plain, (flags, gsa),
                          bound_first_of_run(flags, gsa), full, once, reverse=rev)
+        # segmented_min as _direction_mins calls it: lcp[:n] with the run
+        # starts, lcp[1:n+1] (4 bytes past a 16-byte boundary) with the ends
+        for name, args, rev in (("segmented_min", (lcp[:n], starts), False),
+                                ("segmented_min@rev", (lcp[1:n + 1], ends), True)):
+            self.compare(name, ksm.segmented_min, ksm.segmented_min_plain, args,
+                         bound_segmented_min(*args), full, once, reverse=rev)
         del starts, ends
         lcp0 = uq.unique_lcp0(gsa, lcp, 25)
         dl, g2 = uq.doubly_lcp0(sa, gsa, lcp, 25, 100)

@@ -24,6 +24,7 @@ from cammiq_tpu_torch.kernels import gather_probe as kgp
 from cammiq_tpu_torch.kernels import lcp_pairs as klcp
 from cammiq_tpu_torch.kernels import occ_count as kocc
 from cammiq_tpu_torch.kernels import probe_bloom as kpb
+from cammiq_tpu_torch.kernels import segmented_min as ksm
 from cammiq_tpu_torch.io.fastq import ReadSet
 from cammiq_tpu_torch.ops.sa import suffix_array
 from cammiq_tpu_torch.parallel import dist_query as tdq
@@ -117,6 +118,114 @@ def test_scan_kernel_matches_plain_2e27(cuda_device, nv, reverse):
     (got,) = kfr.first_of_run_scan(f, *vs, reverse=reverse)
     (want,) = kfr.first_of_run_scan_plain(f, *vs, reverse=reverse)
     assert torch.equal(got, want)
+
+
+# ---- the segmented min-scan of the LCP0 stages (kernels/segmented_min.py)
+
+SEGMIN_TILE = 4096
+SEGMIN_PATTERNS = ["none", "all", "only_first", "only_last", "lead_run",
+                   "last_tile", "1e-4", "1e-2", "0.5"]
+
+
+def _segmin_inputs(pattern, n, reverse, dev, seed):
+    """Values with runs of 0 and 2^31 - 1, and flags of ``pattern``;
+    "last_tile": one flag in the tile processed last (the last tile
+    forward, the first reverse), every earlier tile looking back through
+    all the others."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    v = torch.randint(0, 1 << 31, (n,), device=dev, dtype=torch.int32, generator=g)
+    pick = torch.rand(n, device=dev, generator=g)
+    v[pick < 0.2] = 0
+    v[pick > 0.8] = (1 << 31) - 1
+    idx = torch.arange(n, device=dev)
+    if pattern == "none":
+        f = torch.zeros(n, dtype=torch.bool, device=dev)
+    elif pattern == "all":
+        f = torch.ones(n, dtype=torch.bool, device=dev)
+    elif pattern in ("only_first", "only_last"):
+        f = idx == (0 if pattern == "only_first" else n - 1)
+    elif pattern == "lead_run":
+        f = (torch.rand(n, device=dev, generator=g) < 0.01) & (idx >= n // 2)
+    elif pattern == "last_tile":
+        last = (n - 1) // SEGMIN_TILE * SEGMIN_TILE
+        at = (min(7, n - 1) if reverse else last + (n - 1 - last) // 2)
+        f = idx == at
+    else:
+        f = torch.rand(n, device=dev, generator=g) < float(pattern)
+    return v, f
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("pattern", SEGMIN_PATTERNS)
+@pytest.mark.parametrize("n", [1, SEGMIN_TILE - 1, SEGMIN_TILE, SEGMIN_TILE + 1,
+                               (1 << 20) + 3, 1 << 27])
+def test_segmented_min_kernel_matches_plain(cuda_device, n, pattern, reverse):
+    v, f = _segmin_inputs(pattern, n, reverse, cuda_device, n % 1000 + len(pattern))
+    before = ksm.KERNEL.launches
+    got = ksm.segmented_min(v, f, reverse=reverse)
+    assert ksm.KERNEL.launches == before + 1
+    want = ksm.segmented_min_plain(v, f, reverse=reverse)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("value", [0, (1 << 31) - 1])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_segmented_min_kernel_extreme_values(cuda_device, value, reverse):
+    n = 37 * SEGMIN_TILE + 5
+    rng = np.random.default_rng(value % 11)
+    v = np.full(n, value, np.int32)
+    v[rng.integers(0, n, 50)] = 1
+    f = torch.from_numpy(rng.random(n) < 1e-4).to(cuda_device)
+    v = torch.from_numpy(v).to(cuda_device)
+    assert torch.equal(ksm.segmented_min(v, f, reverse=reverse),
+                       ksm.segmented_min_plain(v, f, reverse=reverse))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("flag_offset", [0, 1])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_segmented_min_kernel_unaligned_views(cuda_device, offset, flag_offset,
+                                              reverse):
+    """v a view 1-3 elements past a 16-byte boundary (the build's reverse
+    scan reads lcp[1:n+1]) and flags one byte off it (the byte-load path),
+    at sizes off the tile."""
+    for n in (5, SEGMIN_TILE + 3, 3 * SEGMIN_TILE + 1, (1 << 20) + 1):
+        lcp, f = _segmin_inputs("1e-2", n + 4, reverse, cuda_device, n + offset)
+        v = lcp[offset:offset + n]
+        f = f[flag_offset:flag_offset + n]
+        assert v.data_ptr() % 16 == 4 * offset
+        assert torch.equal(ksm.segmented_min(v, f, reverse=reverse),
+                           ksm.segmented_min_plain(v, f, reverse=reverse))
+
+
+def test_segmented_min_kernel_in_lcp0_stages(cuda_device, build_stages):
+    """unique_lcp0 and doubly_lcp0 on the card launch the scan twice each
+    and equal the same stages on the CPU."""
+    sa, lcp, gsa = build_stages[:3]
+    before = ksm.KERNEL.launches
+    got_u = uq.unique_lcp0(gsa, lcp, 20)
+    got_d = uq.doubly_lcp0(sa, gsa, lcp, 20, 40)
+    assert ksm.KERNEL.launches == before + 4
+    want_u = uq.unique_lcp0(gsa.cpu(), lcp.cpu(), 20)
+    want_d = uq.doubly_lcp0(sa.cpu(), gsa.cpu(), lcp.cpu(), 20, 40)
+    assert torch.equal(got_u.cpu(), want_u)
+    for g, w in zip(got_d, want_d):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_segmented_min_rejects_bad_inputs(cuda_device):
+    v = torch.zeros(8, dtype=torch.int32, device=cuda_device)
+    f = torch.zeros(8, dtype=torch.bool, device=cuda_device)
+    with pytest.raises(TypeError):
+        ksm.segmented_min(v.long(), f)
+    with pytest.raises(ValueError):
+        ksm.segmented_min(v, f[:7])
+    with pytest.raises(ValueError):
+        ksm.segmented_min(v, f.cpu())
+    with pytest.raises(ValueError):
+        ksm.segmented_min(v[::2], f[::2])          # not contiguous
+    assert ksm.segmented_min(v[:0], f[:0]).shape == (0,)
 
 
 def _repeat_text(rng, n, rep):

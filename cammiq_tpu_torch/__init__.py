@@ -10,10 +10,11 @@ The device side:
   device.py        explicit device selection (CUDA asked for and absent
                    raises; there is no silent CPU run)
   u32.py           uint32 wraparound arithmetic for the plain versions
-  kernels/         the seven CUDA kernels (sources in csrc/), each beside
+  kernels/         the nine CUDA kernels (sources in csrc/), each beside
                    its plain PyTorch version, built with nvcc at first use
   query/           merged index on the device, the bloom -> cuckoo probe
-                   join, the gather engine, the case analysis (one
+                   join and its match assembly (one match_assemble launch
+                   a batch), the gather engine, the case analysis (one
                    case_count launch a batch), the query session
   ops/, index/     the device index build (index/builder.py, the default
                    engine): suffix array, LCP, GSA, LCP0, OCC, MU on the

@@ -14,8 +14,9 @@ and ``reverse=True`` takes the first ``j >= i`` with ``is_start[j]`` instead
 of the flipped arrays, without the flips.
 
 Kernel: ``csrc/first_of_run.cu`` (one pass, decoupled look-back; see the
-source note).  On the match-assembly path it ranks each distinct match
-within its read.
+source note).  The device build launches it for its run bounds; the sort
+join's match assembly (``kernels/match_assemble.py``) ranks its matches
+in its own kernel, and its plain version calls the plain scan here.
 """
 
 from __future__ import annotations

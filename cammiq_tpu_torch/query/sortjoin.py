@@ -16,11 +16,12 @@ Per batch, on fixed shapes and with no host sync:
      matches to a list of static capacity KP (``match_capacity``: the
      JAX path's K and KP from ``hit_capacity_frac``), with the matches
      beyond it counted as ``overflow_hits``;
-  3. match assembly on [KP]: the ``prec`` payload gather, one sort on the
-     int64 key read * 2^31 + gid (empty slots carry read = B and sort
-     last), dedup, rank within each read via kernel 1
-     (``first_of_run_scan``), scatter into [B, maxm] slots (empty slots
-     and overflowing ranks into a dump slot);
+  3. kernel 5 (``match_assemble``): the match list grouped by read (a
+     counting sort), each read's distinct gids sorted and ranked, the
+     first maxm written to its row of the [B, maxm] slots with their
+     ``prec`` payloads, every empty slot written, the distinct matches
+     beyond maxm counted; one cooperative launch, reading the list's
+     count on the device;
   4. kernel 4 (``case_count``): the case analysis of the slots and the
      rcount of each assigned read's distinct entries, one launch.
 Slot overflow (more than maxm distinct matches in a read) and hit
@@ -38,9 +39,9 @@ import torch
 
 from .. import u32
 from ..kernels.cuckoo_verify import cuckoo_verify
-from ..kernels.first_of_run import first_of_run_scan
+from ..kernels.match_assemble import match_assemble
 from ..kernels.probe_bloom import num_offsets, probe_bloom
-from .classify import BIG, BatchCounts, MatchSlots, case_count
+from .classify import BatchCounts, MatchSlots, case_count
 from .merged import (
     BLOOM_DEVICE_LOG,
     MergedIndex,
@@ -165,43 +166,13 @@ def collect_matches(dm: TorchMergedIndex, codes: torch.Tensor,
     at capacity ``match_capacity(B * O, n_colors, frac)``."""
     B, Lp = codes.shape
     O = num_offsets(Lp, dm.h)
-    dev = codes.device
     KP = match_capacity(B * O, dm.n_colors, frac)
     rows, keys, n = probe_bloom(codes, dm.bloom, dm.h, dm.bloom_log)
     mrow, me, counts = cuckoo_verify(rows, keys, n, codes, lengths, dm.cuckoo,
                                      dm.cuckoo_log, dm.erec, dm.n_colors, KP)
-    valid = torch.arange(KP, device=dev) < counts[0]
-    read = torch.where(valid, mrow // O, B).to(torch.int64)
-    pr = dm.prec.index_select(0, torch.where(valid, me, 0))       # [KP, 3]
-    key = (read << 31) | torch.where(valid, pr[:, 0], BIG).to(torch.int64)
-    key, order = torch.sort(key)
-    pr = pr.index_select(0, order)
-    read = key >> 31
-    gid = (key & BIG).to(torch.int32)
-    distinct = torch.ones(KP, dtype=torch.bool, device=dev)
-    distinct[1:] = key[1:] != key[:-1]
-    distinct &= read < B
-    newread = torch.ones(KP, dtype=torch.bool, device=dev)
-    newread[1:] = read[1:] != read[:-1]
-    # rank among the read's distinct rows (sortjoin.py:1290-1295)
-    dint = distinct.to(torch.int32)
-    before = torch.cumsum(dint, 0, dtype=torch.int32) - dint
-    (dstart,) = first_of_run_scan(newread, before)
-    rank = before - dstart
-    put = distinct & (rank < maxm)
-    overflow = (distinct & (rank >= maxm)).sum(dtype=torch.int32)
-    flat = torch.where(put, read * maxm + rank, B * maxm)
-
-    def scatter(fill, vals):
-        out = torch.full((B * maxm + 1,), fill, dtype=torch.int32, device=dev)
-        out.scatter_(0, flat, vals)                   # row B*maxm: dump slot
-        return out[:B * maxm].reshape(B, maxm)
-
-    slots = scatter(BIG, gid)
-    ms = MatchSlots(slots=slots, rid1=scatter(0, pr[:, 1].contiguous()),
-                    rid2=scatter(0, pr[:, 2].contiguous()),
-                    in_u=(slots < BIG) & (slots < dm.eu))
-    return Matches(ms, overflow, counts[1])
+    slots, rid1, rid2, in_u, overflow = match_assemble(
+        mrow, me, counts, dm.prec, O, B, maxm, dm.eu)
+    return Matches(MatchSlots(slots, rid1, rid2, in_u), overflow, counts[1])
 
 
 def classify_batch(dm: TorchMergedIndex, codes: torch.Tensor,

@@ -1,7 +1,7 @@
 """Time steady-state query passes of one checkout of the port on the card.
 
     python cammiq_tpu_torch/tools/pass_bench.py --repo DIR --merged DIR \\
-        [--passes 5]
+        [--passes 5] [--grid]
     python cammiq_tpu_torch/tools/pass_bench.py --repo DIR --engine gather \\
         --npz DIR [--passes 5]
 
@@ -20,10 +20,16 @@ and sc-mode passes in turns (host clock around ``QuerySession.run``, which
 ends in its blocking transfer).  Then it holds ``case_count`` on the first
 batch's slots (the engine's own width) to its plain version and times it:
 device only, wrapper included, and each of the wrapper's host steps
-(``case_count_times``).  Last, one more quant pass under
-``torch.profiler`` (``profile_pass``).  Prints one JSON line: the
-checkout, the card, the session start, each pass's seconds, the median
-reads/s by mode, the kernels' times and the profile.
+(``case_count_times``).  The sort join, where the checkout has
+``kernels/match_assemble.py``, also holds ``match_assemble`` on the first
+batch's match list to its plain version and times both
+(``match_assemble_times``).  Last, one more pass of each mode under
+``torch.profiler`` (``profile_pass``).  With ``--grid`` the sort join's
+artifact is also opened as a world-of-one NCCL grid (``QuerySession(grid=
+ProcessGrid(1, 1))``, the store on 127.0.0.1), whose passes are timed in
+turns with the single session's and profiled the same way.  Prints one
+JSON line: the checkout, the card, the session start, each pass's
+seconds, the median reads/s by mode, the kernels' times and the profiles.
 """
 
 from __future__ import annotations
@@ -148,6 +154,101 @@ def batch_slots(sess, reads):
     return collect_matches(sess.dm, codes, lengths, sess.maxm, sess.frac).slots, lengths
 
 
+def match_assemble_times(sess, reads, reps: int) -> dict | None:
+    """``match_assemble`` on the first batch's match list at the session's
+    ``maxm`` and list capacity (as ``collect_matches`` calls it): equal to
+    its plain version; device-only ms `reps` times, also with the list's
+    count set to 0 (the launch's fixed cost: the barriers, the scan over
+    the reads, every slot written empty), and ms a call wrapper included
+    (host clock over 1000 calls), with the launch geometry.  None where
+    the checkout has no such kernel."""
+    import torch
+
+    try:
+        from cammiq_tpu_torch.kernels import match_assemble as kma
+    except ImportError:
+        return None
+    from cammiq_tpu_torch.kernels.cuckoo_verify import cuckoo_verify
+    from cammiq_tpu_torch.kernels.probe_bloom import num_offsets, probe_bloom
+    from cammiq_tpu_torch.query.sortjoin import match_capacity
+
+    dm = sess.dm
+    codes = torch.from_numpy(reads.codes[:8192]).to(dm.device).contiguous()
+    lengths = torch.from_numpy(reads.lengths[:8192]).to(dm.device)
+    B, Lp = codes.shape
+    O = num_offsets(Lp, dm.h)
+    rows, keys, n = probe_bloom(codes, dm.bloom, dm.h, dm.bloom_log)
+    mrow, me, counts = cuckoo_verify(
+        rows, keys, n, codes, lengths, dm.cuckoo, dm.cuckoo_log, dm.erec,
+        dm.n_colors, match_capacity(B * O, dm.n_colors, sess.frac))
+    args = (mrow, me, counts, dm.prec, O, B, sess.maxm, dm.eu)
+    got, want = kma.match_assemble(*args), kma.match_assemble_plain(*args)
+    call = lambda: kma.match_assemble(*args)  # noqa: E731
+    none = (mrow, me, torch.zeros_like(counts), *args[3:])
+    return {"shape": [mrow.shape[0], B, sess.maxm], "matches": int(counts[0]),
+            "equals_plain": all(torch.equal(g, w) for g, w in zip(got, want)),
+            "device_ms": [device_ms(call) for _ in range(reps)],
+            "no_matches_device_ms": [device_ms(lambda: kma.match_assemble(*none))
+                                     for _ in range(reps)],
+            "wrapper_ms": host_us(call) / 1e3,
+            "geometry": kma.match_assemble_geometry(mrow.shape[0], B, sess.maxm,
+                                                    dm.device)}
+
+
+def time_passes(sessions: dict, reads, passes: int) -> dict:
+    """Seconds of ``passes`` quant and sc passes of each session, after one
+    warm-up pass of each, the sessions and modes in turns: name -> mode ->
+    [s]."""
+    import torch
+
+    out = {name: {"quant": [], "sc": []} for name in sessions}
+    for i in range(passes + 1):
+        order = list(sessions.items())
+        for name, sess in (order if i % 2 else order[::-1]):
+            for mode in (("quant", "sc") if i % 2 else ("sc", "quant")):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                sess.run(reads, sc_mode=mode == "sc")
+                if i:                          # pass 0 warms up
+                    out[name][mode].append(time.perf_counter() - t)
+    return out
+
+
+def profiles(sess, reads) -> dict:
+    """One profiled pass of each mode (``profile_pass``), the table cut to
+    its first ten lines."""
+    out = {}
+    for mode in ("quant", "sc"):
+        prof = profile_pass(lambda: sess.run(reads, sc_mode=mode == "sc"))
+        out[mode] = {**prof, "lines": prof["lines"][:10]}
+    return out
+
+
+def grid_session(art, device):
+    """The artifact as a world-of-one NCCL grid's session (the process
+    group started here, on a free port of 127.0.0.1)."""
+    import datetime
+    import socket
+
+    import torch.distributed as dist
+
+    from cammiq_tpu_torch.config import QueryConfig
+    from cammiq_tpu_torch.parallel.mesh import ProcessGrid
+    from cammiq_tpu_torch.query.pipeline import QuerySession
+    from cammiq_tpu_torch.tools.benchdata import BENCH_GENOMES
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    store = dist.TCPStore("127.0.0.1", port, 1, True,
+                          timeout=datetime.timedelta(seconds=120))
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=300))
+    return QuerySession.from_artifact(
+        art, BENCH_GENOMES + 1, QueryConfig(h=art.h, erate=0.01, batch_size=8192),
+        device=device, grid=ProcessGrid(1, 1, device))
+
+
 def case_count_times(sess, reads, reps: int) -> dict:
     """``case_count`` on the first batch's slots, in quant mode with the
     session's rcount target and counter buffer (as a pass calls it): equal
@@ -216,10 +317,14 @@ def main(argv=None) -> int:
     ap.add_argument("--merged", help="merged artifact directory (sort join)")
     ap.add_argument("--npz", help="directory of index_u.npz and index_d.npz (gather)")
     ap.add_argument("--passes", type=int, default=5)
+    ap.add_argument("--grid", action="store_true",
+                    help="also time the sort join as a world-of-one NCCL grid")
     args = ap.parse_args(argv)
     if (args.engine == "gather") != (args.npz is not None) or \
             (args.engine == "sortjoin") != (args.merged is not None):
         ap.error("the sort join takes --merged, the gather engine --npz")
+    if args.grid and args.engine != "sortjoin":
+        ap.error("--grid times the sort join")
     repo = os.path.abspath(args.repo)
     sys.path[0] = repo      # not this file's directory: the port comes from --repo
 
@@ -263,19 +368,22 @@ def main(argv=None) -> int:
               "engine": args.engine, "session_start_s": time.perf_counter() - t}
     if args.engine == "gather":
         result.update(probe_times(sess, reads, reps=5))
-    passes = {"quant": [], "sc": []}
-    for i in range(args.passes + 1):
-        for mode in (("quant", "sc") if i % 2 else ("sc", "quant")):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            sess.run(reads, sc_mode=mode == "sc")
-            if i:                          # pass 0 warms up
-                passes[mode].append(time.perf_counter() - t)
-    result.update(pass_s=passes, reads_per_s={
-        m: reads.num_reads / statistics.median(p) for m, p in passes.items()})
+    sessions = {"single": sess}
+    if args.grid:
+        sessions["grid"] = grid_session(art, sess.device)
+    passes = time_passes(sessions, reads, args.passes)
+    result.update(pass_s=passes["single"], reads_per_s={
+        m: reads.num_reads / statistics.median(p) for m, p in passes["single"].items()})
     result["case_count"] = case_count_times(sess, reads, reps=5)
-    prof = profile_pass(lambda: sess.run(reads))
-    result["profile"] = {**prof, "lines": prof["lines"][:10]}
+    if args.engine == "sortjoin":
+        result["match_assemble"] = match_assemble_times(sess, reads, reps=5)
+    result["profile"] = profiles(sess, reads)
+    if args.grid:
+        result["grid"] = {"pass_s": passes["grid"],
+                          "profile": profiles(sessions["grid"], reads)}
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     print(json.dumps(result))
     return 0
 

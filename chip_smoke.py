@@ -19,13 +19,15 @@ nothing of JAX or of the JAX package, and exits nonzero if any phase fails:
    printed;
 3. kernels on the card: each query kernel against its plain PyTorch version
    on the same CUDA tensors at the main path's shapes (one batch of 8192
-   reads x 100 bases at the session's match capacity; the scan also at
-   n = 2^20): probe_bloom's survivors, keys and count exactly,
-   cuckoo_verify's match list sorted by (row, entry) with its counts, the
-   scan exactly, case_count's counts, pairs and rcount exactly on the
-   batch's [8192, maxm] slots in quant and sc mode; median CUDA-event
-   times of both beside the kernel's bound, and the kernel's device-only
-   time (case_count's launch geometry on a line of its own: lanes a read,
+   reads x 100 bases at the session's match capacity): probe_bloom's
+   survivors, keys and count exactly, cuckoo_verify's match list sorted by
+   (row, entry) with its counts, match_assemble's [8192, maxm] slots,
+   rids, in_u and overflow exactly on that list, case_count's counts,
+   pairs and rcount exactly on the batch's [8192, maxm] slots in quant and
+   sc mode; first_of_run (a build kernel since match_assemble took its
+   query use) at n = 2^20; median CUDA-event times of both beside the
+   kernel's bound, and the kernel's device-only time (case_count's and
+   match_assemble's launch geometry on lines of their own: lanes a read,
    reads a block, blocks, registers, resident blocks an SM);
 4. toy end to end through the CLI (5 x 2000 bp genomes, 4000 simulated
    reads, index built on cuda): quant abundances within 0.01 of the truth
@@ -177,14 +179,24 @@ SYNC_WARNING = "called a synchronizing CUDA operation"
 # integer work these kernels do (the larger rate gives the smaller bound)
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
-# name -> (source, what it replaces, the path whose launches it reports)
+# name -> (source, what it replaces, the path whose launches it reports[,
+# the comparison whose numbers it reports, when not its own name])
 KERNEL_INFO = {
+    # since match_assemble took its query use, a build kernel: its numbers
+    # are phase 12's at the build's n, forward index mode (run_info's starts)
     "first_of_run": ("cammiq_tpu_torch/csrc/first_of_run.cu",
-                     "benchmarks/pallas_repro.py:79", "quant"),
+                     "benchmarks/pallas_repro.py:79", "build",
+                     "first_of_run@build_n index rb"),
     "probe_bloom": ("cammiq_tpu_torch/csrc/probe_bloom.cu",
                     "cammiq_tpu/query/sortjoin.py:867", "quant"),
     "cuckoo_verify": ("cammiq_tpu_torch/csrc/cuckoo_verify.cu",
                       "cammiq_tpu/query/sortjoin.py:1142", "quant"),
+    # XLA work, not a Pallas kernel: the match assembly's sort, rank and
+    # scatters, at the whole index's batch and at one of two shards' (8b)
+    "match_assemble": ("cammiq_tpu_torch/csrc/match_assemble.cu",
+                       "cammiq_tpu/query/sortjoin.py:1268", "quant"),
+    "match_assemble@shard": ("cammiq_tpu_torch/csrc/match_assemble.cu",
+                             "cammiq_tpu/query/sortjoin.py:1268", "shards"),
     "lcp_pairs": ("cammiq_tpu_torch/csrc/lcp_pairs.cu",
                   "cammiq_tpu/ops/lcp.py:90", "build"),
     "occ_count": ("cammiq_tpu_torch/csrc/occ_count.cu",
@@ -212,7 +224,7 @@ KERNEL_INFO = {
                                  "gather_shards"),
 }
 # the kernels each driven path must launch
-SORTJOIN_KERNELS = ("first_of_run", "probe_bloom", "cuckoo_verify", "case_count")
+SORTJOIN_KERNELS = ("probe_bloom", "cuckoo_verify", "match_assemble", "case_count")
 GATHER_KERNELS = ("gather_probe", "case_count")
 PATH_KERNELS = {
     "quant": SORTJOIN_KERNELS,
@@ -305,6 +317,18 @@ def bound_first_of_run(is_start, *values) -> dict:
     written, or in index mode the int32 index written."""
     n, nv = is_start.numel(), len(values)
     return bound(n + (8 * nv if nv else 4) * n)
+
+
+def bound_match_assemble(mrow, me, counts, prec, O, B, maxm, eu) -> dict:
+    """8 bytes a valid match (row and entry) and the 32-byte prec sectors
+    the valid matches touch, read once; the count; 13 bytes a slot written
+    ([B, maxm] slots, rid1, rid2, in_u) and the overflow count."""
+    import torch
+
+    n = min(int(counts[0]), mrow.shape[0])
+    at = me[:n].long() * 12
+    sectors = torch.unique(torch.cat([at // 32, (at + 11) // 32])).numel()
+    return bound(8 * n + 32 * sectors + 4 + 13 * B * maxm + 4)
 
 
 def bound_segmented_min(v, flags) -> dict:
@@ -453,11 +477,13 @@ def bound_occ_doubly(lcp, lcp0, gsa, g2, ulmax, end_excl) -> dict:
 def kernel_counters() -> dict:
     from cammiq_tpu_torch.kernels import (case_count, cuckoo_verify,
                                           first_of_run, gather_probe, lcp_pairs,
-                                          occ_count, probe_bloom, segmented_min)
+                                          match_assemble, occ_count, probe_bloom,
+                                          segmented_min)
 
     return {"first_of_run": first_of_run.KERNEL,
             "probe_bloom": probe_bloom.KERNEL,
             "cuckoo_verify": cuckoo_verify.KERNEL,
+            "match_assemble": match_assemble.KERNEL,
             "segmented_min": segmented_min.KERNEL,
             "lcp_pairs": lcp_pairs.KERNEL, "occ_count": occ_count.KERNEL,
             "gather_probe": gather_probe.KERNEL,
@@ -487,7 +513,7 @@ def capture_kernel_calls(fn) -> dict:
     import cammiq_tpu_torch.query.sortjoin as sj
 
     captured, originals = {}, {}
-    for name in ("probe_bloom", "cuckoo_verify", "first_of_run_scan", "case_count"):
+    for name in ("probe_bloom", "cuckoo_verify", "match_assemble", "case_count"):
         orig = getattr(sj, name)
         originals[name] = orig
 
@@ -819,6 +845,21 @@ class Smoke:
         self.kernels[name]["max_abs_err"] = max(err, self.kernels[name]["max_abs_err"])
         self.kernels[name]["geometry"] = geometry
 
+    def match_assemble_vs_plain(self, name, args):
+        """match_assemble against its plain version on the list a batch
+        handed it (every output exactly), timed beside its bound, with its
+        launch geometry."""
+        from cammiq_tpu_torch.kernels import match_assemble as kma
+
+        mrow, _, counts, _, O, B, maxm, _ = args
+        geometry = kma.match_assemble_geometry(mrow.shape[0], B, maxm, mrow.device)
+        log(f"{name}: {min(int(counts[0]), mrow.shape[0])} valid matches of "
+            f"KP = {mrow.shape[0]} into [{B}, {maxm}] (O = {O}); launch "
+            f"geometry: {geometry}")
+        self.compare(name, kma.match_assemble, kma.match_assemble_plain, args,
+                     bound_match_assemble(*args))
+        self.kernels[name]["geometry"] = geometry
+
     # ---- 1. header + kernel and native builds
     def header(self):
         import torch
@@ -957,7 +998,7 @@ class Smoke:
                                      .astype(np.int32)).to(dev))
         pb_args, (_, _, n) = captured["probe_bloom"]
         cv_args, cv_out = captured["cuckoo_verify"]
-        fr_args, _ = captured["first_of_run_scan"]
+        ma_args, _ = captured["match_assemble"]
         log(f"batch: {n.item()} survivors of {pb_args[0].shape[0]} x "
             f"{cv_args[0].shape[0] // pb_args[0].shape[0]} rows, "
             f"{cv_out[2].tolist()} matches (found, beyond KP = {cv_args[-1]})")
@@ -966,9 +1007,7 @@ class Smoke:
         self.compare("cuckoo_verify", kcv.cuckoo_verify, kcv.cuckoo_verify_plain,
                      cv_args, bound_cuckoo_verify(cv_args, cv_out),
                      canon=match_canon)
-        self.compare("first_of_run", kfr.first_of_run_scan,
-                     kfr.first_of_run_scan_plain, fr_args,
-                     bound_first_of_run(*fr_args))
+        self.match_assemble_vs_plain("match_assemble", ma_args)
         self.compare("first_of_run@2^20", kfr.first_of_run_scan,
                      kfr.first_of_run_scan_plain, scan_big,
                      bound_first_of_run(*scan_big))
@@ -982,7 +1021,7 @@ class Smoke:
 
         from cammiq_tpu_torch import cli
         from cammiq_tpu_torch.kernels import (case_count, cuckoo_verify,
-                                              first_of_run, probe_bloom)
+                                              match_assemble, probe_bloom)
         from cammiq_tpu_torch.models.output import parse_quant_output
         from cammiq_tpu_torch.tools.simulate import simulate
 
@@ -1008,7 +1047,7 @@ class Smoke:
             fq, truth = os.path.join(root, "reads.fq"), os.path.join(root, "truth.out")
             simulate(mapf, db, fq, truth, num_reads=4000, L=100, erate=0.01,
                      dist="lognormal", seed=0)
-            kerns = (probe_bloom.KERNEL, cuckoo_verify.KERNEL, first_of_run.KERNEL,
+            kerns = (probe_bloom.KERNEL, cuckoo_verify.KERNEL, match_assemble.KERNEL,
                      case_count.KERNEL)
             for k in kerns:
                 k.launches = 0
@@ -1711,7 +1750,6 @@ class Smoke:
         import torch
 
         from cammiq_tpu_torch.kernels import cuckoo_verify as kcv
-        from cammiq_tpu_torch.kernels import first_of_run as kfr
         from cammiq_tpu_torch.kernels import probe_bloom as kpb
         from cammiq_tpu_torch.parallel import dist_query as dq
         from cammiq_tpu_torch.query.classify import MatchSlots, case_count
@@ -1779,7 +1817,7 @@ class Smoke:
                                  lengths, G, art.eu + art.ed)
         pb_args, (_, _, n) = captured["probe_bloom"]
         cv_args, cv_out = captured["cuckoo_verify"]
-        fr_args, _ = captured["first_of_run_scan"]
+        ma_args, _ = captured["match_assemble"]
         log(f"second shard, one batch: {n.item()} survivors, "
             f"{cv_out[2].tolist()} matches (found, beyond KP = {cv_args[-1]})")
         self.compare("probe_bloom@shard", kpb.probe_bloom, kpb.probe_bloom_plain,
@@ -1787,10 +1825,8 @@ class Smoke:
         self.compare("cuckoo_verify@shard", kcv.cuckoo_verify,
                      kcv.cuckoo_verify_plain, cv_args,
                      bound_cuckoo_verify(cv_args, cv_out), canon=match_canon)
-        self.compare("first_of_run@shard", kfr.first_of_run_scan,
-                     kfr.first_of_run_scan_plain, fr_args,
-                     bound_first_of_run(*fr_args))
-        for k in ("probe_bloom", "cuckoo_verify", "first_of_run"):
+        self.match_assemble_vs_plain("match_assemble@shard", ma_args)
+        for k in ("probe_bloom", "cuckoo_verify", "match_assemble"):
             full, shard = self.kernels.get(k, {}), self.kernels[f"{k}@shard"]
             log(f"{k}: whole index {full.get('ms')} ms (device only "
                 f"{full.get('device_ms')}), second of two shards {shard['ms']:.4f} ms "
@@ -2260,14 +2296,15 @@ class Smoke:
 
         kernels = []
         launches = self.results.get("launches", {})
-        for name, (src, replaces, path) in KERNEL_INFO.items():
-            k = self.kernels.get(name, {})
+        for name, (src, replaces, path, *stats) in KERNEL_INFO.items():
+            k = self.kernels.get(stats[0] if stats else name, {})
             kernels.append({"name": name, "route": "cuda", "source": src,
                             "replaces": replaces,
                             "launches": launches.get(path, {}).get(
                                 name.split("@")[0], 0),
                             "max_abs_err": k.get("max_abs_err"),
-                            "ms": k.get("ms"), "plain_ms": k.get("plain_ms"),
+                            "ms": k.get("ms"), "device_ms": k.get("device_ms"),
+                            "plain_ms": k.get("plain_ms"),
                             "bound_ms": k.get("bound_ms"),
                             "bound_by": k.get("bound_by"),
                             # no single PyTorch call computes any of these

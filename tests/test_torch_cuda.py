@@ -22,6 +22,7 @@ from cammiq_tpu_torch.kernels import cuckoo_verify as kcv
 from cammiq_tpu_torch.kernels import first_of_run as kfr
 from cammiq_tpu_torch.kernels import gather_probe as kgp
 from cammiq_tpu_torch.kernels import lcp_pairs as klcp
+from cammiq_tpu_torch.kernels import match_assemble as kma
 from cammiq_tpu_torch.kernels import occ_count as kocc
 from cammiq_tpu_torch.kernels import probe_bloom as kpb
 from cammiq_tpu_torch.kernels import segmented_min as ksm
@@ -37,10 +38,11 @@ from cammiq_tpu_torch.query.probe import to_device_index
 import cammiq_tpu_torch.query.sortjoin as tsj
 from cammiq_tpu_torch.query.sortjoin import (TorchMergedIndex, classify_batch,
                                              collect_matches)
-from torch_fixture import (ALPHA, CASE_BRANCHES, by_entry_key, case_rows,
-                           dist_fixture, end_run_table, flat_table, gather_tables,
-                           large_bucket_index, pair_corpus, pair_genomes,
-                           pair_reads, planted_reads, strain_index, strain_reads)
+from torch_fixture import (ALPHA, CASE_BRANCHES, MATCH_CASES, by_entry_key,
+                           case_rows, dist_fixture, end_run_table, flat_table,
+                           gather_tables, large_bucket_index, match_list,
+                           pair_corpus, pair_genomes, pair_reads, planted_reads,
+                           strain_index, strain_reads)
 
 pytestmark = pytest.mark.cuda
 
@@ -456,8 +458,10 @@ def test_collect_matches_cuda_matches_cpu(cuda_device, dist_index, index, maxm):
         codes, lengths = torch.from_numpy(reads), torch.from_numpy(lens)
     want = collect_matches(TorchMergedIndex.from_merged(m, "cpu"), codes,
                            lengths, maxm)
-    got = collect_matches(TorchMergedIndex.from_merged(m, cuda_device),
-                          codes.to(cuda_device), lengths.to(cuda_device), maxm)
+    dm = TorchMergedIndex.from_merged(m, cuda_device)
+    before = kma.KERNEL.launches
+    got = collect_matches(dm, codes.to(cuda_device), lengths.to(cuda_device), maxm)
+    assert kma.KERNEL.launches == before + 1       # the assembly's one launch
     for f in ("slots", "rid1", "rid2", "in_u"):
         assert torch.equal(getattr(got.slots, f).cpu(), getattr(want.slots, f)), f
     assert int(got.overflow_slots) == int(want.overflow_slots)
@@ -766,6 +770,15 @@ def test_wrappers_reject_bad_inputs(cuda_device):
     i32 = torch.zeros(8, dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError):
         kocc.occ_count_unique(i32, i32, i32)          # lcp needs n + 1
+    prec = torch.zeros(4, 3, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError):
+        kma.match_assemble(i32.long(), i32, i32[:2], prec, 2, 4, 16, 1)
+    with pytest.raises(ValueError):
+        kma.match_assemble(i32, i32[:7], i32[:2], prec, 2, 4, 16, 1)
+    with pytest.raises(ValueError):
+        kma.match_assemble(i32, i32, i32[:2], prec[:, :2].contiguous(), 2, 4, 16, 1)
+    with pytest.raises(ValueError):
+        kma.match_assemble(i32, i32, i32[:2].cpu(), prec, 2, 4, 16, 1)
 
 
 # ---- the gather engine (kernels/gather_probe.py)
@@ -1248,3 +1261,85 @@ def test_case_count_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError):
         kcc.case_count(ms, ln.cpu(), 5)
     assert kcc.KERNEL.launches == before
+
+
+# ---- the sort join's match assembly (kernels/match_assemble.py)
+
+ASSEMBLY_FIELDS = ("slots", "rid1", "rid2", "in_u", "overflow")
+
+
+def _assemble_both(lists, O, B, maxm, eu, dev):
+    """match_assemble on ``dev`` (one launch) and its plain version on the
+    same tensors: equal in every output."""
+    args = [torch.from_numpy(a).to(dev) for a in lists]
+    before = kma.KERNEL.launches
+    got = kma.match_assemble(*args, O, B, maxm, eu)
+    assert kma.KERNEL.launches == before + 1
+    want = kma.match_assemble_plain(*args, O, B, maxm, eu)
+    torch.cuda.synchronize()
+    for f, g, w in zip(ASSEMBLY_FIELDS, got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, f
+        assert torch.equal(g, w), f
+    return got
+
+
+@pytest.mark.parametrize("maxm", [1, 16, 300, 4096])
+@pytest.mark.parametrize("case", sorted(MATCH_CASES))
+def test_match_assemble_kernel_matches_plain(cuda_device, case, maxm):
+    """Every synthetic list (duplicates, overflow, counts[0] > KP and = 0,
+    garbage past the valid prefix, B off every block's reads, one read
+    holding the list) at each lane width (8, 16, 32)."""
+    kw = MATCH_CASES[case]
+    mrow, me, counts, prec, eu = match_list(11, **kw)
+    _assemble_both((mrow, me, counts, prec), kw["O"], kw["B"], maxm, eu,
+                   cuda_device)
+
+
+@pytest.mark.parametrize("maxm", [1, 16, 4096])
+@pytest.mark.parametrize("n", [33, 65, 129, 4096, 4097, 24256])
+def test_match_assemble_kernel_wide_read(cuda_device, n, maxm):
+    """One read holds every match of the list: past a group's stage (4
+    matches a lane) it takes one block, which sorts up to 4096 matches in
+    shared memory and counts from device memory beyond."""
+    mrow, me, counts, prec, eu = match_list(n + maxm, B=5, O=n, kp=n, n=n,
+                                            pool=min(n, 3000), E=8192,
+                                            one_read=True)
+    got = _assemble_both((mrow, me, counts, prec), n, 5, maxm, eu, cuda_device)
+    assert int(got[4]) > 0 or maxm == 4096
+
+
+@pytest.mark.parametrize("pool", [3, 40])
+def test_match_assemble_kernel_config3_density(cuda_device, pool):
+    """The config-#3 batch's shape: B = 8192 reads, O = 75, KP = 24,256
+    with 12,895 matches (1.6 a read), maxm 16; ``pool`` 40 puts a third
+    of the reads past 16 distinct gids."""
+    mrow, me, counts, prec, eu = match_list(pool, B=8192, O=75, kp=24256,
+                                            n=12895, pool=pool, E=1 << 16,
+                                            garbage=True)
+    _assemble_both((mrow, me, counts, prec), 75, 8192, 16, eu, cuda_device)
+
+
+def test_match_assemble_kernel_state_and_streams(cuda_device):
+    """The per-stream state stays at zero between launches: calls in a row,
+    a batch wider than the last, a side stream and a batch of one read
+    each equal the plain version, and a call under sync debug mode
+    "error" makes no host sync."""
+    for seed, (B, maxm) in enumerate([(64, 16), (64, 16), (3000, 4), (1, 300)]):
+        mrow, me, counts, prec, eu = match_list(seed, B=B, O=20, kp=6 * B + 9,
+                                                n=5 * B, pool=6)
+        _assemble_both((mrow, me, counts, prec), 20, B, maxm, eu, cuda_device)
+    side = torch.cuda.Stream(cuda_device)
+    mrow, me, counts, prec, eu = match_list(9, **MATCH_CASES["skewed"])
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            _assemble_both((mrow, me, counts, prec), 30, 100, 16, eu, cuda_device)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (mrow, me, counts, prec)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = kma.match_assemble(*args, 30, 100, 16, eu)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = kma.match_assemble_plain(*args, 30, 100, 16, eu)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

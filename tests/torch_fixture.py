@@ -359,3 +359,86 @@ def strain_index():
     corpus = corpus_from_sequences([[ALPHA[g].tobytes()] for g in gs])
     art = build_index(corpus, BuildConfig(**STRAIN_BUILD), engine="numpy")
     return art, gs, len(gs) + 1
+
+
+# ---- match lists for the sort join's assembly (kernels/match_assemble.py)
+
+# name -> match_list arguments: B, O, kp, n valid matches, entries a read
+# draws from, and the case's twist
+MATCH_CASES = {
+    # several matches a read drawn from 3 entries (often one gid twice, as
+    # an entry and its reverse complement), across offsets and colors
+    "dups": dict(B=64, O=20, kp=600, n=500, pool=3),
+    # reads with tens of distinct gids: past every tested maxm but 64
+    "overflow": dict(B=48, O=40, kp=1200, n=1000, pool=60),
+    # more matches found than the list holds: counts[0] > KP
+    "over_kp": dict(B=64, O=20, kp=300, n=300, pool=4, counts0=420),
+    "empty": dict(B=32, O=10, kp=200, n=0, pool=4),
+    # the slots past the valid prefix hold rows and entries out of range
+    "garbage": dict(B=64, O=20, kp=600, n=250, pool=4, garbage=True),
+    # B not a multiple of any block's reads, a few reads holding most matches
+    "skewed": dict(B=100, O=30, kp=900, n=700, pool=12, skew=True),
+    # every match in one read
+    "one_read": dict(B=16, O=500, kp=2000, n=2000, pool=300, one_read=True),
+}
+
+
+def match_prec(rng, E):
+    """(int32 prec [E, 3], eu): about two entries a gid, each gid's rids
+    fixed (equal ids carry equal payloads), a third of the gids pairs."""
+    ngid = max(E // 2, 1)
+    gid = rng.integers(0, ngid, E)
+    r1 = rng.integers(1, 60, ngid)
+    r2 = np.where(rng.random(ngid) < 0.3, rng.integers(1, 60, ngid), 0)
+    return (np.stack([gid, r1[gid], r2[gid]], 1).astype(np.int32),
+            int(ngid * 0.7))
+
+
+def match_list(seed, B, O, kp, n, pool, E=1024, counts0=None, garbage=False,
+               skew=False, one_read=False):
+    """A match list as ``cuckoo_verify`` leaves it: (int32 mrow [kp] = read
+    * O + offset, int32 me [kp], int32 counts [2], int32 prec [E, 3], eu),
+    the first min(counts[0], kp) valid, in no order; each read draws its
+    entries from ``pool`` consecutive ones.  The slots past the valid
+    prefix hold 0, or with ``garbage`` rows and entries out of range."""
+    rng = np.random.default_rng(seed)
+    prec, eu = match_prec(rng, E)
+    if one_read:
+        reads = np.full(n, int(rng.integers(0, B)))
+    elif skew:
+        reads = (rng.random(n) ** 4 * B).astype(np.int64)
+    else:
+        reads = rng.integers(0, B, n)
+    first = rng.integers(0, E, B)
+    mrow = np.zeros(kp, np.int32)
+    me = np.zeros(kp, np.int32)
+    mrow[:n] = reads * O + rng.integers(0, O, n)
+    me[:n] = (first[reads] + rng.integers(0, pool, n)) % E
+    if garbage:
+        bad = kp - n
+        mrow[n:] = np.where(rng.random(bad) < 0.5, rng.integers(-2**31, 0, bad),
+                            rng.integers(B * O, 2**31 - 1, bad))
+        me[n:] = np.where(rng.random(bad) < 0.5, rng.integers(-2**31, 0, bad),
+                          rng.integers(E, 2**31 - 1, bad))
+    found = n if counts0 is None else counts0
+    counts = np.array([found, max(found - kp, 0)], np.int32)
+    return mrow, me, counts, prec, eu
+
+
+def assemble_oracle(mrow, me, counts, prec, O, B, maxm, eu):
+    """numpy twin of the assembly: (slots, rid1, rid2, in_u, overflow)."""
+    big = SLOT_BIG
+    n = min(int(counts[0]), len(mrow))
+    per = {}
+    for i in range(n):
+        per.setdefault(int(mrow[i]) // O, {})[int(prec[me[i], 0])] = prec[me[i]]
+    slots = np.full((B, maxm), big, np.int32)
+    rid1 = np.zeros((B, maxm), np.int32)
+    rid2 = np.zeros((B, maxm), np.int32)
+    over = 0
+    for r, by_gid in per.items():
+        gids = sorted(by_gid)
+        over += max(len(gids) - maxm, 0)
+        for k, g in enumerate(gids[:maxm]):
+            slots[r, k], rid1[r, k], rid2[r, k] = by_gid[g]
+    return slots, rid1, rid2, (slots < big) & (slots < eu), over

@@ -1,7 +1,7 @@
 // The sort join's match assembly: a batch's [KP] match list into [B, maxm]
 // per-read slots, in one cooperative launch.
 //
-// Replaces the XLA assembly of cammiq_tpu/query/sortjoin.py:1268-1307 (a
+// Replaces the XLA assembly of cammiq_tpu/query/sortjoin.py:1276-1307 (a
 // two-key lax.sort of (read, gid) carrying rid1/rid2, newkey/newread
 // flags, a cumsum and _first_of_run_scan for each distinct match's rank
 // within its read, and three .at[flat_t].set scatters), which the port
@@ -22,36 +22,46 @@
 // Every output element is written; the result does not depend on the
 // list's order (cuckoo_verify appends with atomics).
 //
-// A counting sort by read, then a sort and dedup within each read, as four
-// phases of one grid whose blocks are all resident (cudaLaunchCooperative-
-// Kernel), separated by three grid barriers:
-//   A. each match takes its index within its read from an atomic on
-//      cnt[read], and adds one to its 256-read tile's count part[tile];
-//   B. a block a tile: the exclusive prefix of the tiles before it (from
-//      part) and a block scan of its reads' counts give off[r], the start
-//      of read r's matches; cnt is reset to 0; a read with more matches
-//      than its group stages goes on the wide list;
-//   C. each match's (gid, rid1, rid2) is copied from prec to its place in
-//      the grouped arrays (off[read] + its index); part is reset to 0;
-//   D. wide reads first, one block a read: the gids, with their place in
-//      the read, sorted (bitonic, in shared memory, up to 4096 matches;
-//      beyond that, first-occurrence flags and ranks counted from device
-//      memory, quadratic and exact); then every other read by a group of
-//      g lanes (g = 8, 16 or 32, the power of two at or above maxm,
-//      between 8 and 32), up to 4 g matches staged in shared memory:
-//      a match is its gid's first in the read when no earlier match holds
-//      it, and its rank is the number of first matches with a smaller gid.
-//      A first match of rank below maxm writes its slot; the lanes write
-//      the row's empty slots; the group adds what passed maxm to overflow.
-// cnt, part and the barrier's words are state kept per stream by the
-// wrapper, zeroed once when it is made and left at zero by every launch;
-// the other scratch is the caller's torch.empty.  No memset, no host sync.
-//
 // Bound on the card: bytes - 8 a valid match read (row and entry), the
-// 32-byte prec sector a valid match touches, 13 a slot written (the dense
-// [B, maxm] rows).  At config #3 (12,895 matches, [8192, 16]) that is
-// 2.2 MB, 0.00066 ms at 3.35 TB/s.  The kernel is latency-bound instead:
-// four phases of one or two dependent loads each, three grid barriers.
+// 32-byte prec sectors the valid matches touch, 13 a slot written (the
+// dense [B, maxm] rows).  At config #3 (12,895 matches, [8192, 16]) that
+// is 2.3 MB, 0.00069 ms at 3.35 TB/s.  The kernel is bound by latency
+// instead: a launch, a grid barrier and chains of dependent loads.
+//
+// Design.  Each read has a bucket of S = 4 g 16-byte entries (g = 8, 16 or
+// 32 lanes, the power of two at or above maxm, between 8 and 32), so a
+// read's matches land in place and no counting sort is needed:
+//   A. a thread a valid match: its prec row is loaded while the atomic on
+//      cnt[read] that gives its index k within the read is in flight; k <
+//      S stores (gid, rid1, rid2) as one int4 in the bucket; the match
+//      that takes k = S puts the read on the wide list, and every match
+//      with k >= S is spilled: (match, k) to a list of its own;
+//   one grid barrier (its last arrival takes the wide and spill counts
+//   and zeroes them for the next launch);
+//   D. every read by a group of g lanes, each lane holding up to 4 of the
+//      read's entries in registers (one coalesced 16-byte load a round,
+//      the first round and the count fetched together, the next read's
+//      while this one is written): a match is its gid's first when no
+//      lower lane of its round (__match_any_sync) and no earlier round
+//      (shuffles) holds the gid; its rank is the number of first matches
+//      with a smaller gid (each lane's entries against every first match,
+//      one shuffle each).  The group writes its row, valid and empty
+//      slots, resets cnt[read] and counts what passed maxm.
+// A list with a read past S matches (uniform after the barrier) takes a
+// fallback before D, with two more barriers: block 0 scans the wide
+// reads' counts; every match of a wide read (its bucket, then its spilled
+// ones through their k) goes to its place in a packed run; then one block
+// a wide read sorts its run (bitonic in shared memory up to 4096 matches;
+// beyond, first-occurrence flags and ranks counted from device memory,
+// exact) and writes its row, which the group path skips.  Its 32 KB of
+// static shared memory goes to every block; the launch keeps 2 blocks an
+// SM, fewer than the occupancy allows (5 at 48 registers), so it costs no
+// residency, and the group path's reads of other blocks' data go through
+// the L2 (__ldcg), so the smaller L1 it leaves costs no hits.
+// cnt, the barrier's words and the two counts are state kept per stream by
+// the wrapper, zeroed once and left at zero by every launch; the buckets
+// and the fallback's arrays are per-stream scratch, written before they
+// are read.  No memset, no host sync.
 #include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -59,11 +69,11 @@
 namespace {
 
 constexpr int32_t kBig = 0x7FFFFFFF;
-constexpr int kThreads = 256;      // a block, and the reads of a tile in B
-constexpr int kTileLog = 8;
-constexpr int kStagePerLane = 4;   // group path: matches a lane stages
+constexpr int kThreads = 256;
+constexpr int kBucketPerLane = 4;  // a read's bucket: 4 entries a lane
 constexpr int kWideStage = 4096;   // wide path: matches a block sorts in shared memory
 constexpr int kBlocksPerSM = 2;
+constexpr int kStateWords = 6;     // state words before cnt
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
 struct Params {
@@ -77,21 +87,27 @@ struct Params {
   int32_t* rid2;
   uint8_t* in_u;
   int32_t* overflow;
-  // state kept per stream, zero at rest: barrier (count, generation),
-  // cnt [B], part [ceil(B / 256)]
+  // state kept per stream, zero at rest: the barrier's (count,
+  // generation), the wide reads' and spilled matches' counts, the first
+  // barrier's copy of those two (written by every launch before it is
+  // read), cnt [B]
   unsigned* bar;
+  int32_t* wide_n;
+  int32_t* spill_n;
+  int32_t* snap;
   int32_t* cnt;
-  int32_t* part;
-  // scratch: a match's index within its read (phases A-C; the wide path's
-  // flags in D), off [B + 1], the grouped gid / rid1 / rid2 [KP], the wide
-  // list [B] and its length
-  int32_t* local;
-  int32_t* off;
+  // scratch kept per stream: the buckets [B * S]; the fallback's spilled
+  // (match, k) [KP], wide list [B], each read's place in it [B], the wide
+  // runs' starts [B + 1], their gid / rid1 / rid2 and flags [KP]
+  int4* bucket;
+  int2* spill;
+  int32_t* wide;
+  int32_t* widx;
+  int32_t* woff;
   int32_t* gg;
   int32_t* g1;
   int32_t* g2;
-  int32_t* wide;
-  int32_t* wide_n;
+  int32_t* flag;
 };
 
 __device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
@@ -102,18 +118,23 @@ __device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
 
 // Every block of the (co-resident) grid arrives before any leaves.  The
 // last to arrive resets the count and advances the generation the others
-// wait on.
-__device__ void grid_sync(unsigned* bar) {
+// wait on; with `take`, it first moves the wide and spill counts into
+// snap and zeroes them.
+__device__ void grid_sync(const Params& p, bool take) {
   __syncthreads();
   if (threadIdx.x == 0) {
-    const unsigned gen = ld_acquire(bar + 1);
+    const unsigned gen = ld_acquire(p.bar + 1);
     __threadfence();
-    if (atomicAdd(bar, 1u) == gridDim.x - 1) {
-      atomicExch(bar, 0u);
+    if (atomicAdd(p.bar, 1u) == gridDim.x - 1) {
+      if (take) {
+        p.snap[0] = atomicExch(p.wide_n, 0);
+        p.snap[1] = atomicExch(p.spill_n, 0);
+      }
+      atomicExch(p.bar, 0u);
       __threadfence();
-      atomicAdd(bar + 1, 1u);
+      atomicAdd(p.bar + 1, 1u);
     } else {
-      while (ld_acquire(bar + 1) == gen) __nanosleep(32);
+      while (ld_acquire(p.bar + 1) == gen) __nanosleep(32);
     }
     __threadfence();
   }
@@ -166,6 +187,11 @@ __device__ __forceinline__ int read_of(const Params& p, int i) {
   return r < p.B ? r : -1;
 }
 
+__device__ __forceinline__ int4 payload(const Params& p, int i) {
+  const int32_t* pr = p.prec + 3ll * __ldg(p.me + i);
+  return make_int4(__ldg(pr), __ldg(pr + 1), __ldg(pr + 2), 0);
+}
+
 // ascending bitonic sort of a[0, n), n a power of two, by the whole block
 __device__ void bitonic_sort(unsigned long long* a, int n) {
   for (int k = 2; k <= n; k <<= 1) {
@@ -185,16 +211,17 @@ __device__ void bitonic_sort(unsigned long long* a, int n) {
   }
 }
 
-// One read by the whole block: its D distinct gids, ranked, the first maxm
-// written; returns D (on every thread).
-__device__ int wide_read(const Params& p, int r, unsigned long long* keys) {
-  const int base = __ldcg(p.off + r);
-  const int n = __ldcg(p.off + r + 1) - base;
+// Wide read w by the whole block, from its packed run: its D distinct
+// gids, ranked, the first maxm written.
+__device__ void wide_read(const Params& p, int w, unsigned long long* keys) {
+  const int r = __ldcg(p.wide + w);
+  const int base = __ldcg(p.woff + w);
+  const int n = __ldcg(p.woff + w + 1) - base;
   int D = 0;
   if (n <= kWideStage) {
     int n2 = 1;
     while (n2 < n) n2 <<= 1;
-    // (gid, its place in the read): signed order kept by flipping bit 31
+    // (gid, its place in the run): signed order kept by flipping bit 31
     for (int k = threadIdx.x; k < n2; k += kThreads)
       keys[k] = k < n ? ((unsigned long long)((unsigned)__ldcg(p.gg + base + k) ^ 0x80000000u)
                          << 32) | (unsigned)k
@@ -217,22 +244,22 @@ __device__ int wide_read(const Params& p, int r, unsigned long long* keys) {
       }
     }
   } else {
-    // quadratic from device memory: first-occurrence flags into local[]
-    // (free since phase C), then each first match's rank
+    // quadratic from device memory: first-occurrence flags, then each
+    // first match's rank
     for (int j = threadIdx.x; j < n; j += kThreads) {
       const int v = p.gg[base + j];
       bool first = true;
       for (int k = 0; k < j && first; ++k) first = p.gg[base + k] != v;
-      p.local[base + j] = first;
+      p.flag[base + j] = first;
     }
     __syncthreads();
     int c = 0;
     for (int j = threadIdx.x; j < n; j += kThreads) {
-      if (!p.local[base + j]) continue;
+      if (!p.flag[base + j]) continue;
       ++c;
       const int v = p.gg[base + j];
       int d = 0;
-      for (int k = 0; k < n; ++k) d += p.local[base + k] && p.gg[base + k] < v;
+      for (int k = 0; k < n; ++k) d += p.flag[base + k] && p.gg[base + k] < v;
       if (d < p.maxm) put(p, r, d, v, p.g1[base + j], p.g2[base + j]);
     }
     block_exclusive_sum(c, &D);
@@ -241,123 +268,176 @@ __device__ int wide_read(const Params& p, int r, unsigned long long* keys) {
     if (k >= D) put(p, r, k, kBig, 0, 0);
   if (threadIdx.x == 0 && D > p.maxm) atomicAdd(p.overflow, D - p.maxm);
   __syncthreads();  // keys are reused by the block's next wide read
-  return D;
+}
+
+// Read r's row by its group of LANES lanes, from its m <= S bucket entries
+// (e0: this lane's entry of the first round, already loaded); returns the
+// distinct gids past maxm.
+template <int LANES>
+__device__ __forceinline__ int group_row(const Params& p, int r, int m, int4 e0,
+                                         int lane, unsigned gmask, unsigned lt) {
+  constexpr int T = kBucketPerLane;
+  constexpr int S = LANES * T;
+  int x[T], a[T], b[T];
+  x[0] = e0.x;
+  a[0] = e0.y;
+  b[0] = e0.z;
+#pragma unroll
+  for (int t = 1; t < T; ++t) {
+    x[t] = a[t] = b[t] = 0;
+    if (t * LANES < m) {  // uniform: the round holds a match
+      const int4 e = __ldcg(p.bucket + (long long)r * S + t * LANES + lane);
+      x[t] = e.x;
+      a[t] = e.y;
+      b[t] = e.z;
+    }
+  }
+  // first within its round: no lower lane holds the gid (the lanes past m
+  // are above every valid one, so their stale entries never count)
+  bool first[T];
+#pragma unroll
+  for (int t = 0; t < T; ++t) {
+    first[t] = false;
+    if (t * LANES < m) {
+      const unsigned same = __match_any_sync(gmask, x[t]);  // every lane calls it
+      first[t] = t * LANES + lane < m && (same & lt) == 0;
+    }
+  }
+  // ... and no earlier round (full, since a later one holds a match) does
+#pragma unroll
+  for (int u = 0; u < T - 1; ++u) {
+    if ((u + 1) * LANES >= m) break;
+    for (int s = 0; s < LANES; ++s) {
+      const int y = __shfl_sync(gmask, x[u], s, LANES);
+#pragma unroll
+      for (int t = u + 1; t < T; ++t) first[t] = first[t] && y != x[t];
+    }
+  }
+  // rank: the first matches with a smaller gid (BIG stands in for the
+  // others, never smaller than any gid)
+  int rank[T] = {};
+#pragma unroll
+  for (int u = 0; u < T; ++u) {
+    if (u * LANES >= m) break;
+    const int c = min(LANES, m - u * LANES);
+    const int mine = first[u] ? x[u] : kBig;
+    for (int s = 0; s < c; ++s) {
+      const int y = __shfl_sync(gmask, mine, s, LANES);
+#pragma unroll
+      for (int t = 0; t < T; ++t) rank[t] += y < x[t];
+    }
+  }
+  unsigned nfirst = 0;
+#pragma unroll
+  for (int t = 0; t < T; ++t) {
+    nfirst += first[t];
+    if (first[t] && rank[t] < p.maxm) put(p, r, rank[t], x[t], a[t], b[t]);
+  }
+  const int D = (int)__reduce_add_sync(gmask, nfirst);
+  for (int k = D + lane; k < p.maxm; k += LANES) put(p, r, k, kBig, 0, 0);
+  return D > p.maxm ? D - p.maxm : 0;
 }
 
 template <int LANES>
 __global__ void __launch_bounds__(kThreads)
 match_assemble_kernel(Params p) {
-  constexpr int CAP = LANES * kStagePerLane;  // matches a group stages
+  constexpr int S = LANES * kBucketPerLane;  // a read's bucket
   constexpr int R = kThreads / LANES;         // groups a block
-  __shared__ unsigned long long smem[kWideStage];
+  __shared__ unsigned long long keys[kWideStage];
   const int tid = blockIdx.x * kThreads + threadIdx.x;
   const int stride = gridDim.x * kThreads;
   const int n = min(max(__ldg(p.counts), 0), p.kp);
-  const int T = (p.B + kThreads - 1) / kThreads;
 
-  // A. each match's index within its read; the reads' and tiles' counts
-  if (tid == 0) {
-    *p.overflow = 0;
-    *p.wide_n = 0;
-  }
+  // A. each match into its read's bucket, or spilled past it
+  if (tid == 0) *p.overflow = 0;
   for (int i = tid; i < n; i += stride) {
     const int r = read_of(p, i);
-    int k = -1;
-    if (r >= 0) {
-      k = atomicAdd(p.cnt + r, 1);
-      atomicAdd(p.part + (r >> kTileLog), 1);
-    }
-    p.local[i] = k;
-  }
-  grid_sync(p.bar);
-
-  // B. off[r]: the tiles before r's, then a block scan of the tile
-  for (int t = blockIdx.x; t < T; t += gridDim.x) {
-    int s = 0;
-    for (int u = threadIdx.x; u < t; u += kThreads) s += __ldcg(p.part + u);
-    int prefix, total;
-    block_exclusive_sum(s, &prefix);
-    const int r = t * kThreads + threadIdx.x;
-    const int c = r < p.B ? __ldcg(p.cnt + r) : 0;
-    const int e = block_exclusive_sum(c, &total);
-    if (r < p.B) {
-      p.off[r] = prefix + e;
-      p.cnt[r] = 0;
-      if (c > CAP) p.wide[atomicAdd(p.wide_n, 1)] = r;
-    }
-    if (t == T - 1 && threadIdx.x == 0) p.off[p.B] = prefix + total;
-  }
-  grid_sync(p.bar);
-
-  // C. the payloads into their read's run
-  for (int u = tid; u < T; u += stride) p.part[u] = 0;
-  for (int i = tid; i < n; i += stride) {
-    const int k = p.local[i];
-    if (k < 0) continue;
-    const int at = __ldcg(p.off + read_of(p, i)) + k;
-    const int32_t* pr = p.prec + 3ll * __ldg(p.me + i);
-    p.gg[at] = __ldg(pr);
-    p.g1[at] = __ldg(pr + 1);
-    p.g2[at] = __ldg(pr + 2);
-  }
-  grid_sync(p.bar);
-
-  // D. wide reads, one block each, then every other read by a group
-  const int wn = __ldcg(p.wide_n);
-  for (int w = blockIdx.x; w < wn; w += gridDim.x)
-    wide_read(p, __ldcg(p.wide + w), smem);
-
-  int* stage = reinterpret_cast<int*>(smem);                       // [R * CAP]
-  uint8_t* flag = reinterpret_cast<uint8_t*>(stage + R * CAP);      // [R * CAP]
-  const int lane = threadIdx.x & (LANES - 1), grp = threadIdx.x / LANES;
-  const int gbase = (threadIdx.x & 31) & ~(LANES - 1);
-  const unsigned gmask = LANES == 32 ? kFull : ((1u << LANES) - 1u) << gbase;
-  int* sg = stage + grp * CAP;
-  uint8_t* sf = flag + grp * CAP;
-  for (int r = blockIdx.x * R + grp; r < p.B; r += gridDim.x * R) {
-    const int base = __ldcg(p.off + r);
-    const int m = __ldcg(p.off + r + 1) - base;
-    if (m > CAP) continue;  // a wide read, written above
-    int g[kStagePerLane], x1[kStagePerLane], x2[kStagePerLane];
-#pragma unroll
-    for (int t = 0; t < kStagePerLane; ++t) {
-      const int j = lane + t * LANES;
-      g[t] = kBig;
-      x1[t] = x2[t] = 0;
-      if (j < m) {
-        g[t] = __ldcg(p.gg + base + j);
-        x1[t] = __ldcg(p.g1 + base + j);
-        x2[t] = __ldcg(p.g2 + base + j);
+    if (r < 0) continue;
+    const int4 v = payload(p, i);  // in flight with the atomic
+    const int k = atomicAdd(p.cnt + r, 1);
+    if (k < S) {
+      p.bucket[(long long)r * S + k] = v;
+    } else {
+      if (k == S) {
+        const int w = atomicAdd(p.wide_n, 1);
+        p.wide[w] = r;
+        p.widx[r] = w;
       }
+      p.spill[atomicAdd(p.spill_n, 1)] = make_int2(i, k);
     }
-#pragma unroll
-    for (int t = 0; t < kStagePerLane; ++t)
-      if (lane + t * LANES < m) sg[lane + t * LANES] = g[t];
-    __syncwarp(gmask);
-    bool first[kStagePerLane];
-#pragma unroll
-    for (int t = 0; t < kStagePerLane; ++t) {
-      const int j = lane + t * LANES;
-      first[t] = j < m;
-      for (int k = 0; k < j && first[t]; ++k) first[t] = sg[k] != g[t];
-      if (j < m) sf[j] = first[t];
-    }
-    __syncwarp(gmask);
-    unsigned nfirst = 0;
-#pragma unroll
-    for (int t = 0; t < kStagePerLane; ++t) {
-      if (!first[t]) continue;
-      ++nfirst;
-      int d = 0;
-      for (int k = 0; k < m; ++k) d += sf[k] && sg[k] < g[t];
-      if (d < p.maxm) put(p, r, d, g[t], x1[t], x2[t]);
-    }
-    const int D = (int)__reduce_add_sync(gmask, nfirst);
-    for (int k = lane; k < p.maxm; k += LANES)
-      if (k >= D) put(p, r, k, kBig, 0, 0);
-    if (lane == 0 && D > p.maxm) atomicAdd(p.overflow, D - p.maxm);
-    __syncwarp(gmask);  // the stage is reused by the group's next read
   }
+  grid_sync(p, true);
+
+  const int wn = __ldcg(p.snap);
+  if (wn > 0) {
+    // the fallback: block 0 scans the wide reads' counts into woff
+    if (blockIdx.x == 0) {
+      int carry = 0;
+      for (int w0 = 0; w0 < wn; w0 += kThreads) {
+        const int w = w0 + threadIdx.x;
+        const int c = w < wn ? __ldcg(p.cnt + __ldcg(p.wide + w)) : 0;
+        int total;
+        const int e = block_exclusive_sum(c, &total);
+        if (w < wn) p.woff[w] = carry + e;
+        carry += total;
+      }
+      if (threadIdx.x == 0) p.woff[wn] = carry;
+    }
+    grid_sync(p, false);
+    // every match of a wide read into its run: the buckets, then the
+    // spilled matches at their index k
+    const int from_buckets = wn * S;
+    const int total = from_buckets + __ldcg(p.snap + 1);
+    for (int q = tid; q < total; q += stride) {
+      int at;
+      int4 v;
+      if (q < from_buckets) {
+        const int w = q / S, t = q % S;
+        v = __ldcg(p.bucket + (long long)__ldcg(p.wide + w) * S + t);
+        at = __ldcg(p.woff + w) + t;
+      } else {
+        const int2 s = __ldcg(p.spill + (q - from_buckets));
+        v = payload(p, s.x);
+        at = __ldcg(p.woff + __ldcg(p.widx + read_of(p, s.x))) + s.y;
+      }
+      p.gg[at] = v.x;
+      p.g1[at] = v.y;
+      p.g2[at] = v.z;
+    }
+    grid_sync(p, false);
+    for (int w = blockIdx.x; w < wn; w += gridDim.x) wide_read(p, w, keys);
+  }
+
+  // D. every other read by a group; the next read's count and first round
+  // are fetched while this one is written
+  const int lane = threadIdx.x & (LANES - 1), grp = threadIdx.x / LANES;
+  const int wl = threadIdx.x & 31;
+  const int gbase = wl & ~(LANES - 1);
+  const unsigned gmask = LANES == 32 ? kFull : ((1u << LANES) - 1u) << gbase;
+  const unsigned lt = (1u << wl) - 1u;
+  const int rstride = gridDim.x * R;
+  int r = blockIdx.x * R + grp;
+  int m = 0, over = 0;
+  int4 e0 = make_int4(0, 0, 0, 0);
+  if (r < p.B) {
+    if (lane == 0) m = __ldcg(p.cnt + r);
+    e0 = __ldcg(p.bucket + (long long)r * S + lane);
+  }
+  for (; r < p.B; r += rstride) {
+    m = __shfl_sync(gmask, m, 0, LANES);
+    if (lane == 0 && m) p.cnt[r] = 0;
+    const int rn = r + rstride;
+    int mn = 0;
+    int4 en = make_int4(0, 0, 0, 0);
+    if (rn < p.B) {
+      if (lane == 0) mn = __ldcg(p.cnt + rn);
+      en = __ldcg(p.bucket + (long long)rn * S + lane);
+    }
+    if (m <= S) over += group_row<LANES>(p, r, m, e0, lane, gmask, lt);
+    m = mn;
+    e0 = en;
+  }
+  if (lane == 0 && over) atomicAdd(p.overflow, over);
 }
 
 using Kernel = void (*)(Params);
@@ -408,10 +488,13 @@ cudaError_t grid_blocks(int kp, int B, int lanes, int* blocks, int* per_sm) {
 
 }  // namespace
 
-// The 18 arguments, int64 each (pointers as addresses): mrow, me, counts,
+// The 17 arguments, int64 each (pointers as addresses): mrow, me, counts,
 // prec, kp, O, B, maxm, eu, slots, rid1, rid2, in_u, overflow, state
-// (int32 [2 + bcap + ceil(bcap / 256)]: the barrier's two words, cnt,
-// part; zero at rest), bcap, scratch (int32 [4 kp + 2 B + 2]), stream.
+// (int32 [6 + B]: the barrier's two words, the wide and spill counts, the
+// first barrier's copy of them, cnt; zero at rest but the copy),
+// scratch (int32 [4 B S + 6 kp + 3 B + 1], 16-byte aligned, S = 4 lanes:
+// buckets, spilled (match, k), wide list, places, starts, gid / rid1 /
+// rid2 / flags), stream.
 extern "C" int cammiq_match_assemble_packed(const long long* a) {
   Params p;
   p.mrow = (const int32_t*)a[0];
@@ -429,43 +512,48 @@ extern "C" int cammiq_match_assemble_packed(const long long* a) {
   p.in_u = (uint8_t*)a[12];
   p.overflow = (int32_t*)a[13];
   int32_t* state = (int32_t*)a[14];
-  const long long bcap = a[15];
   p.bar = (unsigned*)state;
-  p.cnt = state + 2;
-  p.part = state + 2 + bcap;
-  int32_t* s = (int32_t*)a[16];
-  const long long kp = p.kp, B = p.B;
-  p.local = s;
-  p.gg = s + kp;
-  p.g1 = s + 2 * kp;
-  p.g2 = s + 3 * kp;
-  p.off = s + 4 * kp;
-  p.wide = s + 4 * kp + B + 1;
-  p.wide_n = s + 4 * kp + 2 * B + 1;
+  p.wide_n = state + 2;
+  p.spill_n = state + 3;
+  p.snap = state + 4;
+  p.cnt = state + kStateWords;
   const int lanes = lanes_for(p.maxm);
+  const long long kp = p.kp, B = p.B, S = kBucketPerLane * lanes;
+  int32_t* s = (int32_t*)a[15];
+  p.bucket = (int4*)s;
+  p.spill = (int2*)(s + 4 * B * S);
+  p.wide = s + 4 * B * S + 2 * kp;
+  p.widx = p.wide + B;
+  p.woff = p.widx + B;
+  p.gg = p.woff + B + 1;
+  p.g1 = p.gg + kp;
+  p.g2 = p.g1 + kp;
+  p.flag = p.g2 + kp;
   const Kernel fn = kernel_for(lanes);
   int blocks = 0, per_sm = 0;
   cudaError_t err = grid_blocks(p.kp, p.B, lanes, &blocks, &per_sm);
   if (err != cudaSuccess) return (int)err;
   void* args[] = {&p};
   err = cudaLaunchCooperativeKernel((const void*)fn, dim3(blocks), dim3(kThreads),
-                                    args, 0, (cudaStream_t)a[17]);
+                                    args, 0, (cudaStream_t)a[16]);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// The launch for kp, B and maxm, into out[7]: lanes a read, reads a
+// The launch for kp, B and maxm, into out[8]: lanes a read, reads a
 // group-path block, blocks, threads a block, registers a thread, resident
-// blocks an SM, static shared bytes a block.
-extern "C" int cammiq_match_assemble_geometry(int kp, int B, int maxm, int* out) {
+// blocks an SM, static shared bytes a block, the buckets' bytes.
+extern "C" int cammiq_match_assemble_geometry(int kp, int B, int maxm,
+                                              long long* out) {
   const int lanes = lanes_for(maxm);
   const Kernel fn = kernel_for(lanes);
   int blocks = 0, per_sm = 0;
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, fn);
   if (err == cudaSuccess) err = grid_blocks(kp, B, lanes, &blocks, &per_sm);
-  const int vals[7] = {lanes, kThreads / lanes, blocks, kThreads, attr.numRegs,
-                       per_sm, (int)attr.sharedSizeBytes};
-  for (int i = 0; i < 7; ++i) out[i] = err == cudaSuccess ? vals[i] : 0;
+  const long long vals[8] = {lanes, kThreads / lanes, blocks, kThreads, attr.numRegs,
+                             per_sm, (long long)attr.sharedSizeBytes,
+                             16LL * B * kBucketPerLane * lanes};
+  for (int i = 0; i < 8; ++i) out[i] = err == cudaSuccess ? vals[i] : 0;
   return (int)err;
 }

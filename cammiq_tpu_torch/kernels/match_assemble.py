@@ -16,11 +16,15 @@ an int64 sort on read * 2^31 + gid, a cumsum and the first-of-run scan
 for each distinct match's rank within its read, and three scatters (the
 JAX package's op for op; on the CPU bit-identical to it).
 
-Kernel: ``csrc/match_assemble.cu`` (see the source note): a counting
-sort by read and a group of 8-32 lanes a read for the sort and dedup
-(one block a read past 4g matches), four phases of one cooperative
-launch; no memset, no host sync.  A CPU tensor takes the plain version; a
-CUDA tensor the kernel, which raises if it cannot build or launch.
+Kernel: ``csrc/match_assemble.cu`` (see the source note), one
+cooperative launch a batch: each valid match goes straight to its read's
+bucket of 4g 16-byte entries (an atomic on the read's count gives its
+place), one grid barrier, then a group of g = 8-32 lanes a read (from
+``lanes_for(maxm)``) dedups and ranks the read's entries in registers and
+writes its row.  A list with a read past its bucket takes a fallback of
+two more barriers: its matches packed by read, one block a wide read.  No
+memset, no host sync.  A CPU tensor takes the plain version; a CUDA
+tensor the kernel, which raises if it cannot build or launch.
 """
 
 from __future__ import annotations
@@ -35,15 +39,18 @@ from .first_of_run import first_of_run_scan_plain
 from .gather_probe import BIG
 
 KERNEL = CudaKernel("cammiq_match_assemble_packed", [ctypes.c_char_p])
-_pack = struct.Struct("<18q").pack
-READS_PER_TILE = 256          # csrc/match_assemble.cu's kThreads
+_pack = struct.Struct("<17q").pack
+BUCKET_PER_LANE = 4           # csrc/match_assemble.cu's kBucketPerLane
+STATE_WORDS = 6               # its kStateWords: the words before cnt
 GEOMETRY_FIELDS = ("lanes", "reads_per_block", "blocks", "threads",
-                   "registers", "resident_blocks_per_sm", "shared_bytes")
+                   "registers", "resident_blocks_per_sm", "shared_bytes",
+                   "bucket_bytes")
 
-# (device index, stream handle) -> (int32 state, reads it holds): the
-# kernel's barrier words and per-read and per-tile counters, zeroed once
-# here and left at zero by every launch; one a stream, so launches that
-# may overlap never share it
+# (device index, stream handle) -> (int32 state, int32 scratch): the
+# kernel's barrier words, counts and per-read counters, zeroed once here
+# and left at zero by every launch, and its buckets and fallback arrays,
+# written before they are read; one pair a stream, so launches that may
+# overlap never share them
 _state: dict = {}
 
 
@@ -87,14 +94,29 @@ def match_assemble_plain(mrow: torch.Tensor, me: torch.Tensor,
             overflow)
 
 
-def _state_for(dev: torch.device, stream: int, B: int) -> tuple:
+def lanes_for(maxm: int) -> int:
+    """The kernel's lanes a read for ``maxm`` slots (its ``lanes_for``); a
+    read's bucket holds ``BUCKET_PER_LANE`` times as many matches."""
+    return 8 if maxm <= 8 else 16 if maxm <= 16 else 32
+
+
+def scratch_words(kp: int, B: int, maxm: int) -> int:
+    """int32 words of scratch a launch needs: the buckets (4 words an
+    entry), then the fallback's spilled (match, k) pairs, wide list,
+    places, run starts and four arrays of the list's length."""
+    S = BUCKET_PER_LANE * lanes_for(maxm)
+    return 4 * B * S + 6 * kp + 3 * B + 1
+
+
+def _state_for(dev: torch.device, stream: int, B: int, words: int) -> tuple:
     key = (dev.index, stream)
-    got = _state.get(key)
-    if got is None or got[1] < B:
-        tiles = -(-B // READS_PER_TILE)
-        got = (torch.zeros(2 + B + tiles, dtype=torch.int32, device=dev), B)
-        _state[key] = got
-    return got
+    state, scratch = _state.get(key, (None, None))
+    if state is None or state.numel() < STATE_WORDS + B:
+        state = torch.zeros(STATE_WORDS + B, dtype=torch.int32, device=dev)
+    if scratch is None or scratch.numel() < words:
+        scratch = torch.empty(words, dtype=torch.int32, device=dev)
+    _state[key] = state, scratch
+    return state, scratch
 
 
 def match_assemble(mrow: torch.Tensor, me: torch.Tensor, counts: torch.Tensor,
@@ -118,19 +140,19 @@ def match_assemble(mrow: torch.Tensor, me: torch.Tensor, counts: torch.Tensor,
         raise ValueError(f"match_assemble: mrow {tuple(mrow.shape)}, me "
                          f"{tuple(me.shape)}, counts {tuple(counts.shape)}, "
                          f"prec {tuple(prec.shape)}")
-    if O < 1 or B < 0 or maxm < 0 or 4 * kp + 2 * B + 2 >= 2**31:
+    words = scratch_words(kp, B, maxm)
+    if O < 1 or B < 0 or maxm < 0 or words >= 2**31:
         raise ValueError(f"match_assemble: O={O}, B={B}, maxm={maxm}, kp={kp}")
     stream = stream_ptr(dev)
-    state, bcap = _state_for(dev, stream, B)
+    state, scratch = _state_for(dev, stream, B, words)
     out = torch.empty(3, B, maxm, dtype=torch.int32, device=dev)
     in_u = torch.empty(B, maxm, dtype=torch.bool, device=dev)
     overflow = torch.empty((), dtype=torch.int32, device=dev)
-    scratch = torch.empty(4 * kp + 2 * B + 2, dtype=torch.int32, device=dev)
+    at, plane = out.data_ptr(), 4 * B * maxm     # slots, rid1, rid2 in turn
     KERNEL(_pack(mrow.data_ptr(), me.data_ptr(), counts.data_ptr(),
-                 prec.data_ptr(), kp, O, B, maxm, eu, out[0].data_ptr(),
-                 out[1].data_ptr(), out[2].data_ptr(), in_u.data_ptr(),
-                 overflow.data_ptr(), state.data_ptr(), bcap,
-                 scratch.data_ptr(), stream))
+                 prec.data_ptr(), kp, O, B, maxm, eu, at, at + plane,
+                 at + 2 * plane, in_u.data_ptr(), overflow.data_ptr(),
+                 state.data_ptr(), scratch.data_ptr(), stream))
     return out[0], out[1], out[2], in_u, overflow
 
 
@@ -138,8 +160,9 @@ def match_assemble_geometry(kp: int, B: int, maxm: int, device) -> dict:
     """How ``match_assemble`` launches for a [kp] list into [B, maxm] on
     the CUDA ``device`` (``GEOMETRY_FIELDS``): lanes a read, reads a
     group-path block, blocks, threads a block, the kernel's registers a
-    thread, resident blocks an SM and static shared bytes a block."""
-    out = (ctypes.c_int * len(GEOMETRY_FIELDS))()
+    thread, resident blocks an SM, static shared bytes a block and the
+    buckets' bytes."""
+    out = (ctypes.c_longlong * len(GEOMETRY_FIELDS))()
     lib = load()
     fn = lib.cammiq_match_assemble_geometry
     fn.argtypes = [I32, I32, I32, VP]
@@ -150,4 +173,3 @@ def match_assemble_geometry(kp: int, B: int, maxm: int, device) -> dict:
         raise RuntimeError(f"cammiq_match_assemble_geometry: CUDA error {err}: "
                            f"{lib.cammiq_error_string(err).decode()}")
     return dict(zip(GEOMETRY_FIELDS, out))
-

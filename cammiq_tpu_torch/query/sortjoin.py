@@ -17,7 +17,7 @@ Per batch, on fixed shapes and with no host sync:
      JAX path's K and KP from ``hit_capacity_frac``), with the matches
      beyond it counted as ``overflow_hits``;
   3. kernel 5 (``match_assemble``): the match list grouped by read (a
-     counting sort), each read's distinct gids sorted and ranked, the
+     bucket a read), each read's distinct gids sorted and ranked, the
      first maxm written to its row of the [B, maxm] slots with their
      ``prec`` payloads, every empty slot written, the distinct matches
      beyond maxm counted; one cooperative launch, reading the list's

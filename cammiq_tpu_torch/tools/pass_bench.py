@@ -158,10 +158,13 @@ def match_assemble_times(sess, reads, reps: int) -> dict | None:
     """``match_assemble`` on the first batch's match list at the session's
     ``maxm`` and list capacity (as ``collect_matches`` calls it): equal to
     its plain version; device-only ms `reps` times, also with the list's
-    count set to 0 (the launch's fixed cost: the barriers, the scan over
-    the reads, every slot written empty), and ms a call wrapper included
-    (host clock over 1000 calls), with the launch geometry.  None where
-    the checkout has no such kernel."""
+    count set to 0 (the launch's fixed cost: the launch, the barriers,
+    every slot written empty), and ms a call wrapper included (host clock
+    over 1000 calls), with the launch geometry and, counted on the host
+    from ``mrow``, the reads holding more matches than 4 a lane (those
+    that leave the group path: past a read's bucket, or in the kernel's
+    counting-sort design past a group's stage) and the most a read holds.  None where the checkout has no such kernel."""
+    import numpy as np
     import torch
 
     try:
@@ -185,14 +188,18 @@ def match_assemble_times(sess, reads, reps: int) -> dict | None:
     got, want = kma.match_assemble(*args), kma.match_assemble_plain(*args)
     call = lambda: kma.match_assemble(*args)  # noqa: E731
     none = (mrow, me, torch.zeros_like(counts), *args[3:])
+    geometry = kma.match_assemble_geometry(mrow.shape[0], B, sess.maxm, dm.device)
+    rows = mrow[:min(int(counts[0]), mrow.shape[0])].cpu().numpy()
+    held = np.bincount(rows[(rows >= 0) & (rows < B * O)] // O, minlength=B)
     return {"shape": [mrow.shape[0], B, sess.maxm], "matches": int(counts[0]),
+            "reads_past_4_a_lane": int((held > 4 * geometry["lanes"]).sum()),
+            "most_matches_a_read": int(held.max()),
             "equals_plain": all(torch.equal(g, w) for g, w in zip(got, want)),
             "device_ms": [device_ms(call) for _ in range(reps)],
             "no_matches_device_ms": [device_ms(lambda: kma.match_assemble(*none))
                                      for _ in range(reps)],
             "wrapper_ms": host_us(call) / 1e3,
-            "geometry": kma.match_assemble_geometry(mrow.shape[0], B, sess.maxm,
-                                                    dm.device)}
+            "geometry": geometry}
 
 
 def time_passes(sessions: dict, reads, passes: int) -> dict:

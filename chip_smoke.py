@@ -849,13 +849,18 @@ class Smoke:
         """match_assemble against its plain version on the list a batch
         handed it (every output exactly), timed beside its bound, with its
         launch geometry."""
+        import torch
+
         from cammiq_tpu_torch.kernels import match_assemble as kma
 
         mrow, _, counts, _, O, B, maxm, _ = args
         geometry = kma.match_assemble_geometry(mrow.shape[0], B, maxm, mrow.device)
-        log(f"{name}: {min(int(counts[0]), mrow.shape[0])} valid matches of "
-            f"KP = {mrow.shape[0]} into [{B}, {maxm}] (O = {O}); launch "
-            f"geometry: {geometry}")
+        n = min(int(counts[0]), mrow.shape[0])
+        held = torch.bincount(mrow[:n].long() // O, minlength=B)
+        log(f"{name}: {n} valid matches of KP = {mrow.shape[0]} into [{B}, "
+            f"{maxm}] (O = {O}), {int((held > 4 * geometry['lanes']).sum())} "
+            f"reads past their bucket, at most {int(held.max())} a read; "
+            f"launch geometry: {geometry}")
         self.compare(name, kma.match_assemble, kma.match_assemble_plain, args,
                      bound_match_assemble(*args))
         self.kernels[name]["geometry"] = geometry

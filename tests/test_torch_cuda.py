@@ -1308,6 +1308,40 @@ def test_match_assemble_kernel_wide_read(cuda_device, n, maxm):
     assert int(got[4]) > 0 or maxm == 4096
 
 
+@pytest.mark.parametrize("maxm", [1, 16, 32, 64])
+def test_match_assemble_kernel_bucket_edge(cuda_device, maxm):
+    """Reads holding exactly 4g and 4g + 1 matches for the lane width g of
+    ``maxm``: a full bucket on the group path, and one match past it on
+    the fallback (its matches packed by read, one block a wide read)."""
+    kw = MATCH_CASES["bucket_edge"]
+    mrow, me, counts, prec, eu = match_list(5, **kw)
+    S = kma.BUCKET_PER_LANE * kma.lanes_for(maxm)
+    held = np.bincount(mrow[:kw["n"]] // kw["O"], minlength=kw["B"])
+    assert S in held and S + 1 in held
+    _assemble_both((mrow, me, counts, prec), kw["O"], kw["B"], maxm, eu,
+                   cuda_device)
+
+
+@pytest.mark.parametrize("maxm", [1, 16, 64])
+def test_match_assemble_kernel_every_read_wide(cuda_device, maxm):
+    """Every one of 600 reads past its bucket (4g + 1 to 4g + 40 matches:
+    the fallback's scan runs over more than one block of wide reads),
+    twice, then an ordinary list on the same stream, which finds the state
+    the fallback left at zero."""
+    S = kma.BUCKET_PER_LANE * kma.lanes_for(maxm)
+    sizes = tuple(range(S + 1, S + 41))
+    B = 600
+    n = int(np.resize(sizes, B).sum())
+    mrow, me, counts, prec, eu = match_list(maxm, B=B, O=50, kp=n + 100, n=n,
+                                            pool=60, E=8192, sizes=sizes)
+    for _ in range(2):
+        _assemble_both((mrow, me, counts, prec), 50, B, maxm, eu, cuda_device)
+    kw = MATCH_CASES["skewed"]
+    mrow, me, counts, prec, eu = match_list(4, **kw)
+    _assemble_both((mrow, me, counts, prec), kw["O"], kw["B"], maxm, eu,
+                   cuda_device)
+
+
 @pytest.mark.parametrize("pool", [3, 40])
 def test_match_assemble_kernel_config3_density(cuda_device, pool):
     """The config-#3 batch's shape: B = 8192 reads, O = 75, KP = 24,256

@@ -380,6 +380,10 @@ MATCH_CASES = {
     "skewed": dict(B=100, O=30, kp=900, n=700, pool=12, skew=True),
     # every match in one read
     "one_read": dict(B=16, O=500, kp=2000, n=2000, pool=300, one_read=True),
+    # reads holding exactly 4g and 4g + 1 matches for g = 8, 16 and 32
+    # lanes: the kernel's bucket full, and one match past it
+    "bucket_edge": dict(B=16, O=200, kp=1000, n=904, pool=48,
+                        sizes=(32, 33, 64, 65, 128, 129, 0, 1)),
 }
 
 
@@ -395,15 +399,20 @@ def match_prec(rng, E):
 
 
 def match_list(seed, B, O, kp, n, pool, E=1024, counts0=None, garbage=False,
-               skew=False, one_read=False):
+               skew=False, one_read=False, sizes=None):
     """A match list as ``cuckoo_verify`` leaves it: (int32 mrow [kp] = read
     * O + offset, int32 me [kp], int32 counts [2], int32 prec [E, 3], eu),
     the first min(counts[0], kp) valid, in no order; each read draws its
-    entries from ``pool`` consecutive ones.  The slots past the valid
-    prefix hold 0, or with ``garbage`` rows and entries out of range."""
+    entries from ``pool`` consecutive ones.  With ``sizes`` read r holds
+    exactly ``sizes[r % len(sizes)]`` matches (n must be their sum).  The
+    slots past the valid prefix hold 0, or with ``garbage`` rows and
+    entries out of range."""
     rng = np.random.default_rng(seed)
     prec, eu = match_prec(rng, E)
-    if one_read:
+    if sizes is not None:
+        reads = rng.permutation(np.repeat(np.arange(B), np.resize(sizes, B)))
+        assert len(reads) == n, (len(reads), n)
+    elif one_read:
         reads = np.full(n, int(rng.integers(0, B)))
     elif skew:
         reads = (rng.random(n) ** 4 * B).astype(np.int64)

@@ -10,7 +10,7 @@ The device side:
   device.py        explicit device selection (CUDA asked for and absent
                    raises; there is no silent CPU run)
   u32.py           uint32 wraparound arithmetic for the plain versions
-  kernels/         the nine CUDA kernels (sources in csrc/), each beside
+  kernels/         the ten CUDA kernels (sources in csrc/), each beside
                    its plain PyTorch version, built with nvcc at first use
   query/           merged index on the device, the bloom -> cuckoo probe
                    join and its match assembly (one match_assemble launch
@@ -19,7 +19,8 @@ The device side:
   ops/, index/     the device index build (index/builder.py, the default
                    engine): suffix array, LCP, GSA, LCP0, OCC, MU on the
                    device; selection on the host
-  models/quant.py  the quantification QP solver on torch tensors
+  models/quant.py  the quantification QP solver on torch tensors (each
+                   FISTA chunk one quant_fista launch on the card)
   cli.py           ``python -m cammiq_tpu_torch.cli`` (--device, then the
                    cammiq_tpu CLI flags)
 

@@ -161,3 +161,4 @@ def stream_ptr(device) -> int:
 VP = ctypes.c_void_p
 I32 = ctypes.c_int
 I64 = ctypes.c_longlong
+F32 = ctypes.c_float

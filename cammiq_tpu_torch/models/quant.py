@@ -11,8 +11,11 @@ copies of ``cammiq_tpu/models/quant.py`` (41-255).
 Differences from the JAX version, none of which changes what is solved:
   * the quadratic's gradient is written out; the Hessian-vector product of
     a quadratic is grad(v) - grad(0);
-  * ``fori_loop`` becomes a Python loop and ``vmap`` over subsets a leading
-    batch dimension;
+  * a FISTA chunk (``fori_loop`` over the iterations, ``vmap`` over the
+    subsets) is ``kernels/quant_fista.py:fista_chunk``: on the card one
+    launch of ``csrc/quant_fista.cu`` for the whole batch, on the CPU its
+    plain version, a Python loop of torch ops with a leading batch
+    dimension;
   * the TOTAL-row knapsack projection finds its multiplier by refining a
     256-point grid three times (2^24 steps, float32 resolution) instead of
     60 sequential bisections: the same bracket, fewer dependent launches;
@@ -36,9 +39,8 @@ import torch
 from ..config import FineParams
 from ..device import resolve_device
 from ..index.table import FlatIndex
-
-_GRID = 256
-_GRID_ROUNDS = 3
+from ..kernels.quant_fista import (e2_rows, fista_chunk, fista_terms,
+                                   grad_plain, term_rows)
 
 
 def prefilter(
@@ -275,87 +277,26 @@ def solve_quant(prob: QuantProblem, iters: int = 2000, outer: int = 6,
     def T(a, dtype=f32):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
 
-    ug, dg1, dg2 = (T(a, torch.int64) for a in (prob.ug, prob.dg1, prob.dg2))
-    uw, ur, uf = T(prob.uw), T(prob.ur), T(prob.uf)
-    dw1, dw2, dr, df = T(prob.dw1), T(prob.dw2), T(prob.dr), T(prob.df)
-    tg, lb, ub = T(prob.total_g), T(prob.lb), T(prob.ub)
-    rhs = float(prob.total_rhs)
-
-    # doubly coverage rows: term t belongs to row sp_row[downer[t]]
-    C2 = len(prob.c2_species)
-    sp_row = np.full(prob.n, C2, np.int64)   # C2 = dropped row
-    sp_row[prob.c2_species] = np.arange(C2)
-    trow_np = sp_row[prob.downer] if len(prob.downer) else np.zeros(0, np.int64)
-    trow = T(trow_np, torch.int64)
-    # the JAX version reads mults[trow] with XLA's clamped gather, so a
-    # dropped row (index C2) reads row C2-1; kept for identical iterates
-    trow_read = trow.clamp(max=max(C2 - 1, 0))
-    c2_rhs = T(prob.c2_rhs)
-    has_c2 = C2 > 0 and len(prob.downer) > 0
-
-    def residuals(x):
-        pu = uw * x[..., ug] - ur
-        pd = dw1 * x[..., dg1] + dw2 * x[..., dg2] - dr
-        return pu, pd
+    # the terms on the device; on the card also folded for the kernel
+    terms = fista_terms(prob, dev)
+    tg, lb, ub = terms.tg, T(prob.lb), T(prob.ub)
+    rhs = terms.rhs
+    C2 = terms.C2
+    trow_np = term_rows(prob)
+    c2_rhs = terms.c2_rhs
+    has_c2 = terms.has_c2
 
     def objective(x):
-        pu, pd = residuals(x)
-        return (uf * pu * pu).sum(-1) + (df * pd * pd).sum(-1)
-
-    def grad(x):
-        pu, pd = residuals(x)
-        g = torch.zeros_like(x)
-        g.index_add_(-1, ug, 2.0 * uf * uw * pu)
-        g.index_add_(-1, dg1, 2.0 * df * dw1 * pd)
-        g.index_add_(-1, dg2, 2.0 * df * dw2 * pd)
-        return g
-
-    def e2_rows(x):
-        vals = dw1 * x[..., dg1] + dw2 * x[..., dg2]
-        out = torch.zeros(x.shape[:-1] + (C2 + 1,), dtype=f32, device=dev)
-        return out.index_add_(-1, trow, vals)[..., :C2]
-
-    def al_grad(x, lam_c2, rho):
-        g = grad(x)
-        if has_c2:
-            mults = torch.clamp(lam_c2 + rho * (c2_rhs - e2_rows(x)), min=0.0)
-            tm = mults[..., trow_read]
-            g.index_add_(-1, dg1, -tm * dw1)
-            g.index_add_(-1, dg2, -tm * dw2)
-        return g
-
-    def project(y, lbv, ubv):
-        """Exact projection onto the box intersected with {tg.x <= rhs}:
-        f(mu) = tg . clip(y - mu tg) - rhs is nonincreasing; the result is
-        the projection at the smallest grid mu with f(mu) <= 0."""
-        x = torch.minimum(torch.maximum(y, lbv), ubv)
-        viol = (x * tg).sum(-1) - rhs
-        pos = tg > 0
-        hi = torch.where(pos, (y - lbv) / torch.where(pos, tg, 1.0), 0.0)
-        hi = torch.clamp(hi.amax(-1), min=1.0)
-        a = torch.zeros_like(hi)
-        b = hi
-        frac = torch.arange(1, _GRID + 1, dtype=f32, device=dev) / _GRID
-        y_, lb_, ub_ = y[..., None, :], lbv[..., None, :], ubv[..., None, :]
-        for _ in range(_GRID_ROUNDS):
-            mus = a[..., None] + (b - a)[..., None] * frac       # [..., G]
-            xs = torch.minimum(torch.maximum(y_ - mus[..., None] * tg, lb_), ub_)
-            feas = (xs * tg).sum(-1) - rhs <= 0
-            k = torch.argmax(feas.to(torch.uint8), dim=-1, keepdim=True)
-            any_f = feas.any(-1)
-            nb = torch.gather(mus, -1, k)[..., 0]
-            na = torch.where(k[..., 0] > 0,
-                             torch.gather(mus, -1, (k - 1).clamp(min=0))[..., 0], a)
-            a = torch.where(any_f, na, b)
-            b = torch.where(any_f, nb, b)
-        xb = torch.minimum(torch.maximum(y - b[..., None] * tg, lbv), ubv)
-        return torch.where((viol > 0)[..., None], xb, x)
+        pu = terms.uw * x[..., terms.ug] - terms.ur
+        pd = (terms.dw1 * x[..., terms.dg1] + terms.dw2 * x[..., terms.dg2]
+              - terms.dr)
+        return (terms.uf * pu * pu).sum(-1) + (terms.df * pd * pd).sum(-1)
 
     # Lipschitz estimate via power iteration on the quadratic's Hessian
-    g0 = grad(torch.zeros(n, dtype=f32, device=dev))
+    g0 = grad_plain(torch.zeros(n, dtype=f32, device=dev), terms)
 
     def hvp(v):
-        return grad(v) - g0
+        return grad_plain(v, terms) - g0
 
     v = T(np.random.default_rng(0).random(n).astype(np.float32) + 1e-3)
     for _ in range(10):
@@ -379,25 +320,18 @@ def solve_quant(prob: QuantProblem, iters: int = 2000, outer: int = 6,
         step = 1.0 / L
 
     chunk_iters = max(iters // max(outer, 1), 50)
+    chunks = 0
 
     def fista(x0, lam_c2, lbv, ubv, n_it):
-        x, y = x0, x0
-        t = torch.ones(x0.shape[:-1], dtype=f32, device=dev)
-        for _ in range(n_it):
-            g = al_grad(y, lam_c2, rho)
-            xn = project(y - step * g, lbv, ubv)
-            # gradient-based adaptive restart (O'Donoghue & Candes)
-            restart = (g * (xn - x)).sum(-1) > 0
-            tn = torch.where(restart, 1.0, 0.5 * (1 + torch.sqrt(1 + 4 * t * t)))
-            yn = project(xn + ((t - 1) / tn)[..., None] * (xn - x), lbv, ubv)
-            y = torch.where(restart[..., None], xn, yn)
-            x, t = xn, tn
-        return x
+        """One chunk: on the card one launch of csrc/quant_fista.cu."""
+        nonlocal chunks
+        chunks += 1
+        return fista_chunk(x0, lam_c2, lbv, ubv, n_it, terms, step, rho)
 
     def lam_update(x, lam_c2):
         if not has_c2:
             return lam_c2, torch.zeros(x.shape[:-1] + (C2,), dtype=f32, device=dev)
-        viol_c2 = c2_rhs - e2_rows(x)
+        viol_c2 = c2_rhs - e2_rows(x, terms)
         return torch.clamp(lam_c2 + rho * viol_c2, min=0.0), viol_c2
 
     def run_chunk(x0, lam_c2, lbv, ubv):
@@ -423,10 +357,12 @@ def solve_quant(prob: QuantProblem, iters: int = 2000, outer: int = 6,
         return x, lam_c2, used
 
     # ---- stage 1: relaxed solve ----
+    stage_s = {"prepare": time.perf_counter() - t0}
     x = torch.minimum(torch.maximum(torch.zeros(n, dtype=f32, device=dev), lb), ub)
     lam_c2 = torch.zeros(C2, dtype=f32, device=dev)
     x, lam_c2, chunks_used = run_to_convergence(x, lam_c2, lb, ub, outer)
     xh = x.cpu().numpy()
+    stage_s["relax"] = time.perf_counter() - t0 - sum(stage_s.values())
 
     # ---- stage 2: branch over the (0, 0.01) EXIST hole ----
     forced = prob.exist0 & (prob.lb > 0)
@@ -461,7 +397,7 @@ def solve_quant(prob: QuantProblem, iters: int = 2000, outer: int = 6,
         rv_tot = torch.clamp((xs * tg).sum(-1) - rhs, min=0.0) / max(rhs, 1.0)
         pen = 1e12 * torch.clamp(rv_tot - knee, min=0.0)
         if has_c2:
-            rv_c2 = torch.clamp(c2_rhs - e2_rows(xs), min=0.0) / torch.clamp(
+            rv_c2 = torch.clamp(c2_rhs - e2_rows(xs, terms), min=0.0) / torch.clamp(
                 c2_rhs, min=1.0)
             pen = pen + 1e12 * torch.clamp(rv_c2 - knee, min=0.0).sum(-1)
         return objective(xs) + pen
@@ -525,9 +461,12 @@ def solve_quant(prob: QuantProblem, iters: int = 2000, outer: int = 6,
             stopped_by = "time_limit"
             break
 
+    stage_s["enum"] = time.perf_counter() - t0 - sum(stage_s.values())
+
     # ---- stage 2b: exact best-first B&B with the certified bound ----
     bnb_complete = False
     nodes = 0
+    bound_s = 0.0
     if enum_cap < n_free <= bnb_cap and stopped_by != "time_limit":
         host_bound = _make_host_bound(prob)
         incumbent = float(penalty_score(best_x, 1e-6))
@@ -560,7 +499,9 @@ def solve_quant(prob: QuantProblem, iters: int = 2000, outer: int = 6,
                 torch.zeros(C2, dtype=f32, device=dev), lbj, ubj,
                 max(outer // 2, 2))
             xrn = xr.cpu().numpy()
+            tb = time.perf_counter()
             cert = host_bound(xrn, lam_r.cpu().numpy(), lbv, ubv)
+            bound_s += time.perf_counter() - tb
             if cert >= incumbent - margin:
                 continue
             sc = float(penalty_score(xr, 1e-6))
@@ -590,6 +531,7 @@ def solve_quant(prob: QuantProblem, iters: int = 2000, outer: int = 6,
             print(f"[quant] B&B: {nodes} nodes, complete={bnb_complete}, "
                   f"incumbent={incumbent:.6g}", file=sys.stderr)
 
+    stage_s["bnb"] = time.perf_counter() - t0 - sum(stage_s.values())
     exist = best_ub_full > 0
     cov = np.where(exist, np.clip(xh, 0.01, None), 0.0)
     cov = np.minimum(cov, prob.ub)
@@ -606,6 +548,11 @@ def solve_quant(prob: QuantProblem, iters: int = 2000, outer: int = 6,
         "chunks_used": chunks_used,
         "exhaustive": n_free <= enum_cap or bnb_complete,
         "stopped_by": stopped_by,
+        "c2_rows": C2,
+        "fista_chunks": chunks,
+        "bnb_nodes": nodes,
+        "bound_s": bound_s,
+        "stage_s": stage_s,
     }
     if not info["exhaustive"]:
         warnings.warn(

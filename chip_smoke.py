@@ -8,7 +8,7 @@ C++ compiler with OpenMP.  It builds everything from this checkout, imports
 nothing of JAX or of the JAX package, and exits nonzero if any phase fails:
 
 1. header: the card's name and power limit, torch/CUDA/nvcc versions; the
-   eight CUDA kernels and the native host library are compiled (build
+   ten CUDA kernels and the native host library are compiled (build
    seconds printed);
 2. set-up: the config-#3-shape index (the bench generator,
    tools/benchdata.py: 1000 genomes x 300 kb, k=26 L=100 Lmax=50 h=26),
@@ -128,7 +128,24 @@ nothing of JAX or of the JAX package, and exits nonzero if any phase fails:
    python -m cammiq_tpu_torch.index.artifact on phase 2's npz pair, every
    file equal to phase 2's artifact (a child process started before phase
    12, whose device work its host work overlaps, and waited for before (c)
-   so that (c)'s times have the host to themselves).
+   so that (c)'s times have the host to themselves);
+15. quant at scale (after phase 9, on phase 2's artifact and session):
+   benchmarks/realized_free.py's mixture (tools/benchdata.py:
+   sample_mixture: MIX_PRESENT genomes in lognormal abundance,
+   MIX_BATCHES batches of BATCH reads) through the session (set-up), its
+   quant problems under the default, the stress and the constrained fine
+   parameters (MIX_FINE; candidates, free candidates, C2 rows, n and terms
+   printed), and solve_quant on the card for the stress and the
+   constrained problem: every chunk one launch of quant_fista (counters
+   zeroed before the two solves, read after), stage-1 chunks, enumeration
+   rounds, B&B nodes, stopped_by, seconds by stage and the host bound's
+   seconds a node printed; quant_fista against its plain version on the
+   card on chunks captured from the stress solve (its first stage-1
+   chunk, its first enumeration batch, its last B&B node's chunk) within
+   QUANT_CHUNK_TOL, beside its bound; each whole solve against the plain
+   version's (the same EXIST set, abundances within 1e-3 L1, the same
+   stopped_by), the stress one only when the plain solve is estimated to
+   end within MIX_PLAIN_LIMIT_S, else at the chunk level only.
 
 Every kernel time is printed beside its bound and its device-only time
 (CUDA events around calls queued behind a sleep kernel, so they run back
@@ -222,6 +239,16 @@ KERNEL_INFO = {
     "case_count@gather_shards": ("cammiq_tpu_torch/csrc/case_count.cu",
                                  "cammiq_tpu/query/classify.py:160",
                                  "gather_shards"),
+    # XLA work, not a Pallas kernel: the quant solver's FISTA chunk
+    # (fori_loop in fista, vmap over subsets in solve_subsets), at the
+    # mixture's stage-1 chunk (S = 1), an enumeration batch (S = 2^m) and a
+    # B&B node's chunk (phase 15)
+    "quant_fista": ("cammiq_tpu_torch/csrc/quant_fista.cu",
+                    "cammiq_tpu/models/quant.py:412", "quant_scale"),
+    "quant_fista@enum": ("cammiq_tpu_torch/csrc/quant_fista.cu",
+                         "cammiq_tpu/models/quant.py:523", "quant_scale"),
+    "quant_fista@bnb": ("cammiq_tpu_torch/csrc/quant_fista.cu",
+                        "cammiq_tpu/models/quant.py:412", "quant_scale"),
 }
 # the kernels each driven path must launch
 SORTJOIN_KERNELS = ("probe_bloom", "cuckoo_verify", "match_assemble", "case_count")
@@ -237,7 +264,26 @@ PATH_KERNELS = {
     "gather_grid": GATHER_KERNELS,
     "gather_shards": GATHER_KERNELS,
     "refcompat": SORTJOIN_KERNELS + ("gather_probe",),
+    "quant_scale": ("quant_fista",),
 }
+# phase 15: benchmarks/realized_free.py's mixture on the config-#3 index,
+# and the fine parameters of its problems: the default, realized_free's
+# stress variant (no EXP rows, every candidate free) and a constrained one
+# (the default easy_to_identify_thres: C2 rows)
+MIX_PRESENT = 60
+MIX_BATCHES = 12
+MIX_FINE = {"default": {},
+            "stress": dict(read_cnt_thres=1, easy_to_identify_thres=10**9,
+                           ilp_alpha=1e-9),
+            "constrained": dict(read_cnt_thres=1, ilp_alpha=1e-9)}
+MIX_STRESS_FREE = 9           # more than enum_cap: the B&B runs
+MIX_PLAIN_LIMIT_S = 240       # the plain stress solve runs when it ends within
+# a chunk's x, kernel against plain version: max |x - x_plain| within
+# QUANT_CHUNK_TOL x max(1, max |x_plain|) (float32 sums in another order
+# can move the projection's first feasible grid point by one step, which
+# FISTA's momentum carries through the chunk; the plain version, its start
+# moved by one ulp, moves as far)
+QUANT_CHUNK_TOL = 1e-3
 # phase 14: read batches on the reference-format index, and the engines
 REF_BATCHES = 4
 ENGINES = ("sortjoin", "gather")
@@ -474,11 +520,30 @@ def bound_occ_doubly(lcp, lcp0, gsa, g2, ulmax, end_excl) -> dict:
     return bound(12 * n + 12 * walk)
 
 
+def bound_quant_fista(p, S, n_it, stats) -> dict:
+    """x0, lb, ub [S, n], lam [S, C2], tg, c2_rhs and the folded terms read
+    once, x [S, n] and the stats written once; the float operations of
+    the iterations: the gradient's 2 nnz(H) (and 2 nnz(R) + 2 nnz(M) + 4
+    C2 with C2 rows) and about 30 a coordinate a iteration, and, in each
+    projection that ran the grid (counted by the kernel), 3 rounds x 256
+    points x (4 a coordinate with lb < ub + 2) and 3 a coordinate."""
+    f = p.folded
+    n, C2 = p.n, p.C2
+    nbytes = (4 * (4 * S * n + S * C2 + n + C2) + 8 * S
+              + sum(t.numel() * t.element_size() for t in f.values()))
+    per_it = 2 * f["h_val"].numel() + 30 * n
+    if p.has_c2:
+        per_it += 2 * f["r_val"].numel() + 2 * f["m_val"].numel() + 4 * C2
+    grids, nf = stats[:, 0].long().cpu(), stats[:, 1].long().cpu()
+    grid_ops = int((grids * (3 * 256 * (4 * nf + 2) + 3 * n)).sum())
+    return bound(nbytes, S * n_it * per_it + grid_ops)
+
+
 def kernel_counters() -> dict:
     from cammiq_tpu_torch.kernels import (case_count, cuckoo_verify,
                                           first_of_run, gather_probe, lcp_pairs,
                                           match_assemble, occ_count, probe_bloom,
-                                          segmented_min)
+                                          quant_fista, segmented_min)
 
     return {"first_of_run": first_of_run.KERNEL,
             "probe_bloom": probe_bloom.KERNEL,
@@ -487,7 +552,8 @@ def kernel_counters() -> dict:
             "segmented_min": segmented_min.KERNEL,
             "lcp_pairs": lcp_pairs.KERNEL, "occ_count": occ_count.KERNEL,
             "gather_probe": gather_probe.KERNEL,
-            "case_count": case_count.KERNEL}
+            "case_count": case_count.KERNEL,
+            "quant_fista": quant_fista.KERNEL}
 
 
 def zero_counts() -> None:
@@ -2296,6 +2362,208 @@ class Smoke:
                 counts.nundet, counts.nconf, sc.pair_counts):
             raise AssertionError(f"gather {what} differs in nundet/nconf/pairs")
 
+    # ---- 15. quant at scale: the mixture's solves on config #3
+    def quant_scale(self, art, sess):
+        """realized_free.py's mixture (MIX_PRESENT genomes in lognormal
+        abundance, MIX_BATCHES batches) through the session (set-up), its
+        problems under three fine settings, and solve_quant on the card for
+        the stress and the constrained one: the solves are this path
+        (counters zeroed before, read after).  Then the kernel against its
+        plain version on chunks captured from them, and whole solves
+        against the plain version's."""
+        import numpy as np
+        import torch
+
+        import cammiq_tpu_torch.models.quant as mq
+        from cammiq_tpu_torch.config import FineParams
+        from cammiq_tpu_torch.io.fastq import ReadSet
+        from cammiq_tpu_torch.io.mapfile import (Genome, GenomeTable,
+                                                 load_genome_lengths)
+        from cammiq_tpu_torch.kernels import quant_fista as kqf
+        from cammiq_tpu_torch.tools.benchdata import gen_genomes, sample_mixture
+
+        out = self.results["quant_scale"] = {}
+        G = self.results["genomes"] + 1
+        t = time.time()
+        genomes = gen_genomes(self.results["genomes"], self.results["genome_len"])
+        present, weights, batches = sample_mixture(genomes, MIX_PRESENT, MIX_BATCHES)
+        del genomes
+        codes = np.concatenate([b[0] for b in batches])
+        lengths = np.concatenate([b[1] for b in batches])
+        reads = ReadSet(codes=codes, lengths=lengths,
+                        total_len=int(lengths.sum()), name="mixture")
+        counts = sess.run(reads)
+        table = GenomeTable([None] + [Genome(taxid=i, name=f"g{i}")
+                                      for i in range(1, G)])
+        load_genome_lengths(table, art.path)
+        gl, nus, nds = table.arrays()
+        index_u, index_d = art.payloads()
+        probs = {}
+        for variant, kw in MIX_FINE.items():
+            p = mq.build_problem(
+                index_u, index_d, counts.rcount_u, counts.rcount_d,
+                counts.cnts_u.astype(np.float64), counts.cnts_d.astype(np.float64),
+                nus.astype(np.float64), nds.astype(np.float64), gl,
+                counts.mean_read_len, counts.num_reads, 0.01, FineParams(**kw))
+            forced = p.exist0 & (p.lb > 0)
+            out[variant] = {"candidates": int(p.exist0.sum()),
+                            "free": int((p.exist0 & ~forced).sum()),
+                            "c2_rows": len(p.c2_species), "n": p.n,
+                            "terms_u": len(p.ug), "terms_d": len(p.dg1)}
+            probs[variant] = p
+            log(f"quant at scale, {variant} fine parameters {kw}: {out[variant]}")
+        log(f"set-up {time.time() - t:.1f} s: {reads.num_reads} reads of "
+            f"{MIX_PRESENT} present genomes ({MIX_BATCHES} x {BATCH}), "
+            f"{int(counts.cnts_u.sum())} unique-assigned; abundance weights "
+            f"{np.round(np.sort(weights)[::-1], 4).tolist()}")
+        for variant, need in (("stress", MIX_STRESS_FREE), ("constrained", 1)):
+            if out[variant]["free" if variant == "stress" else "c2_rows"] < need:
+                log(f"quant at scale: the {variant} problem realizes "
+                    f"{out[variant]} (fewer than {need}): solved as it is")
+
+        # the path: both solves on the card, every chunk one launch
+        captured = {}
+        orig = mq.fista_chunk
+
+        def recorder(x0, lam, lbv, ubv, n_it, p, step, rho):
+            S = max(x0.shape[0] if x0.dim() == 2 else 1,
+                    lbv.shape[0] if lbv.dim() == 2 else 1)
+            args = (x0.clone(), lam.clone(), lbv.clone(), ubv.clone(), n_it, p,
+                    step, rho)
+            calls["batch" if S > 1 else "one"] += 1
+            key = "enum" if S > 1 else "stage1" if not captured else "last"
+            if key != "enum" or "enum" not in captured:
+                captured[key] = args
+            return orig(x0, lam, lbv, ubv, n_it, p, step, rho)
+
+        solved = {}
+        zero_counts()
+        torch.cuda.synchronize()
+        for variant in ("stress", "constrained"):
+            captured.clear()
+            calls = {"one": 0, "batch": 0}
+            mq.fista_chunk = recorder
+            try:
+                before = kqf.KERNEL.launches
+                exist, cov, info = mq.solve_quant(probs[variant], device=sess.device)
+                launched = kqf.KERNEL.launches - before
+            finally:
+                mq.fista_chunk = orig
+            solved[variant] = (exist, cov, info, dict(captured), dict(calls))
+            if launched != info.get("fista_chunks"):
+                raise AssertionError(f"{variant}: {launched} launches for "
+                                     f"{info.get('fista_chunks')} chunks")
+            nodes = info.get("bnb_nodes", 0)
+            out[variant].update(
+                solve_s=info["solve_time"], stage_s=info.get("stage_s"),
+                stage1_chunks=info.get("chunks_used"),
+                enum_rounds=info.get("enum_rounds"), bnb_nodes=nodes,
+                stopped_by=info.get("stopped_by"), launches=launched,
+                selected=int(exist.sum()),
+                bound_s_per_node=info["bound_s"] / nodes if nodes else None)
+            log(f"quant at scale, {variant} on the card: {launched} launches of "
+                f"quant_fista = {launched} chunks (stage 1: {info.get('chunks_used')}, "
+                f"{info.get('enum_rounds')} enumeration rounds of "
+                f"{info.get('enum_size')} subsets, {nodes} B&B nodes), stopped by "
+                f"{info.get('stopped_by')}, {int(exist.sum())} selected; solve "
+                f"{info['solve_time']:.3f} s by stage "
+                f"{ {k: round(v, 4) for k, v in info['stage_s'].items()} }, host "
+                f"bound {out[variant]['bound_s_per_node']} s a node")
+            if not (np.isfinite(cov).all() and cov.shape == (G,)
+                    and exist[probs[variant].exist0].any()
+                    and not exist[~probs[variant].exist0].any()):
+                raise AssertionError(f"{variant}: implausible solve output")
+        read_counts("quant_scale", self.results)
+
+        # the kernel against its plain version on captured chunks
+        stress_info = solved["stress"][2]
+        chunks = {"quant_fista": solved["stress"][3]["stage1"],
+                  "quant_fista@enum": solved["stress"][3].get("enum"),
+                  "quant_fista@bnb": (solved["stress"][3].get("last")
+                                      if stress_info.get("bnb_nodes") else None)}
+        for name, args in chunks.items():
+            if args is None:
+                log(f"{name}: the stress solve ran no such chunk")
+                continue
+            self.quant_fista_vs_plain(name, args)
+
+        # whole solves: the kernel's against the plain version's
+        def plain_chunk(x0, lam, lbv, ubv, n_it, p, step, rho):
+            return kqf.fista_chunk_plain(x0, lam, lbv, ubv, n_it, p, step, rho)
+
+        for variant in ("constrained", "stress"):
+            exist, cov, info, _, calls = solved[variant]
+            if variant == "stress":
+                per = {k: self.kernels[k]["plain_ms"] / 1e3 for k in chunks
+                       if k in self.kernels}
+                est = (calls["one"] * per.get("quant_fista", 0.0)
+                       + calls["batch"] * per.get("quant_fista@enum", 0.0))
+                out["stress"]["plain_estimate_s"] = est
+                if est > MIX_PLAIN_LIMIT_S:
+                    log(f"quant at scale, stress: the plain solve would take about "
+                        f"{est:.0f} s (> {MIX_PLAIN_LIMIT_S} s): compared at the "
+                        f"chunk level only")
+                    continue
+            mq.fista_chunk = plain_chunk
+            try:
+                pe, pc, pi = mq.solve_quant(probs[variant], device=sess.device)
+            finally:
+                mq.fista_chunk = orig
+            l1 = float(np.abs(cov / cov[exist].sum() - pc / pc[pe].sum()).sum())
+            out[variant].update(plain_solve_s=pi["solve_time"],
+                                plain_stage_s=pi.get("stage_s"), abundance_l1=l1)
+            log(f"quant at scale, {variant}: plain solve {pi['solve_time']:.3f} s "
+                f"by stage { {k: round(v, 4) for k, v in pi['stage_s'].items()} } "
+                f"against the kernel's {info['solve_time']:.3f} s; same EXIST "
+                f"{bool((pe == exist).all())}, abundance L1 {l1:.3g}, stopped by "
+                f"{pi['stopped_by']} / {info['stopped_by']}")
+            if not ((pe == exist).all() and l1 <= 1e-3
+                    and pi["stopped_by"] == info["stopped_by"]):
+                raise AssertionError(f"{variant}: kernel solve != plain solve")
+
+    def quant_fista_vs_plain(self, name, args):
+        """quant_fista against its plain version on one captured chunk: max
+        |x - x_plain| within QUANT_CHUNK_TOL x max(1, max |x_plain|), timed
+        beside its bound."""
+        import torch
+
+        from cammiq_tpu_torch.kernels import quant_fista as kqf
+        from cammiq_tpu_torch.tools.pass_bench import device_ms
+
+        x0, lam, lbv, ubv, n_it, p, step, rho = args
+        S = max(x0.shape[0] if x0.dim() == 2 else 1,
+                lbv.shape[0] if lbv.dim() == 2 else 1)
+        stats = torch.zeros(S, 2, dtype=torch.int32, device=x0.device)
+        got = kqf.fista_chunk(*args, stats=stats)
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        want = kqf.fista_chunk_plain(*args)
+        e.record()
+        torch.cuda.synchronize()
+        plain_ms = s.elapsed_time(e)
+        err = float((got - want).abs().max())
+        scale = max(1.0, float(want.abs().max()))
+        ms = cuda_median_ms(lambda: kqf.fista_chunk(*args), 5, 3, 1)
+        dev_ms = device_ms(lambda: kqf.fista_chunk(*args), 3)
+        bnd = bound_quant_fista(p, S, n_it, stats)
+        dev = (f"{dev_ms:.4f} ms" if dev_ms else
+               "not measured: the host outran the sleep")
+        log(f"{name}: S={S} n={p.n} C2={p.C2} n_it={n_it} nnz(H, M, R)="
+            f"{[p.folded[k].numel() for k in ('h_val', 'm_val', 'r_val')]} "
+            f"coordinates with lb < ub {stats[:, 1].tolist()[:4]}, grid "
+            f"projections {stats[:, 0].sum().item()}; max_abs_err={err:.3g} "
+            f"(scale {scale:.3g}) kernel {ms:.4f} ms (device only {dev}) plain "
+            f"{plain_ms:.4f} ms bound {bnd['bound_ms']:.6f} ms ({bnd['bound_by']}: "
+            f"{bnd['bytes']} B, {bnd['ops']} ops) -> "
+            f"{100 * bnd['bound_ms'] / ms:.4f}% of bound")
+        self.kernels[name] = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                              "plain_ms": plain_ms, "S": S, "n": p.n, "C2": p.C2,
+                              "n_it": n_it, "scale": scale, **bnd}
+        if not err <= QUANT_CHUNK_TOL * scale:
+            raise AssertionError(f"{name}: kernel != plain version ({err})")
+
     def report(self, device_name: str, smi: str):
         import torch
 
@@ -2366,6 +2634,7 @@ def main() -> int:
                     sess, reads)
             s.phase("gather engine at config-#3 scale", s.gather_engine, mdir,
                     sess, reads)
+        s.phase("quant at scale: the mixture's solves", s.quant_scale, art, sess)
         del art, sess, art_sess
         torch.cuda.empty_cache()
     s.phase("toy Type-II and build through the CLI", s.toy_type2)

@@ -25,8 +25,10 @@ from cammiq_tpu_torch.kernels import lcp_pairs as klcp
 from cammiq_tpu_torch.kernels import match_assemble as kma
 from cammiq_tpu_torch.kernels import occ_count as kocc
 from cammiq_tpu_torch.kernels import probe_bloom as kpb
+from cammiq_tpu_torch.kernels import quant_fista as kqf
 from cammiq_tpu_torch.kernels import segmented_min as ksm
 from cammiq_tpu_torch.io.fastq import ReadSet
+from cammiq_tpu_torch.models.quant import solve_quant
 from cammiq_tpu_torch.ops.sa import suffix_array
 from cammiq_tpu_torch.parallel import dist_query as tdq
 from cammiq_tpu_torch.index.table import _empty_flat_index
@@ -38,11 +40,13 @@ from cammiq_tpu_torch.query.probe import to_device_index
 import cammiq_tpu_torch.query.sortjoin as tsj
 from cammiq_tpu_torch.query.sortjoin import (TorchMergedIndex, classify_batch,
                                              collect_matches)
-from torch_fixture import (ALPHA, CASE_BRANCHES, MATCH_CASES, by_entry_key,
-                           case_rows, dist_fixture, end_run_table, flat_table,
+from torch_fixture import (ALPHA, CASE_BRANCHES, MATCH_CASES,
+                           QUANT_BEYOND_CAP, QUANT_CONSTRAINED,
+                           QUANT_UNCONSTRAINED, by_entry_key, case_rows,
+                           dist_fixture, end_run_table, flat_table,
                            gather_tables, large_bucket_index, match_list,
                            pair_corpus, pair_genomes, pair_reads, planted_reads,
-                           strain_index, strain_reads)
+                           quant_problem, strain_index, strain_reads)
 
 pytestmark = pytest.mark.cuda
 
@@ -1377,3 +1381,142 @@ def test_match_assemble_kernel_state_and_streams(cuda_device):
     want = kma.match_assemble_plain(*args, 30, 100, 16, eu)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+# ---- the quant solver's FISTA chunk (kernels/quant_fista.py)
+
+# a chunk's x, kernel against plain version: max |x - x_plain| within
+# QUANT_CHUNK_TOL x max(1, max |x_plain|).  The kernel's float32 sums run
+# in another order, and the projection's first feasible grid point can
+# then move by one step; FISTA's momentum carries such a step through the
+# chunk.  The plain version, its start moved by one ulp, moves as far
+# mid-chunk; by the chunk's end both settle again (PERF.md)
+QUANT_CHUNK_TOL = 1e-3
+QUANT_KINDS = {"unconstrained": QUANT_UNCONSTRAINED,
+               "constrained": QUANT_CONSTRAINED, "beyond_cap": QUANT_BEYOND_CAP,
+               # reads for about half the predicted coverage: the TOTAL row
+               # binds and the projection's grid runs
+               "total_binds": dict(total_slack=(0.5, 0.6))}
+
+
+def _chunk_inputs(prob, S, dev, seed):
+    """A chunk's inputs as the solver makes them: the problem's own bounds
+    (S = 1) or the bounds of S random subsets of the candidates (the
+    enumeration's), starts inside them, multipliers >= 0, the step
+    1 / (2 L) with L the Gershgorin bound of H, and rho = L / |M|^2."""
+    rng = np.random.default_rng(seed)
+    n, C2 = prob.n, len(prob.c2_species)
+    if S == 1:
+        lb, ub = prob.lb[None], prob.ub[None]
+    else:
+        sel = (rng.random((S, n)) < 0.6) & prob.exist0
+        lb = np.where(sel, np.maximum(prob.lb, 0.01), 0.0)
+        ub = np.where(sel, prob.ub, 0.0)
+    x0 = np.clip(rng.random((S, n)) * 4, lb, ub)
+    lam = rng.random((S, C2)) * 10
+    terms = kqf.fista_terms(prob, dev)
+    f = terms.folded
+    L = float(torch.zeros(n, dtype=torch.float64, device=dev).index_add_(
+        0, torch.repeat_interleave(torch.arange(n, device=dev),
+                                   (f["h_ptr"][1:] - f["h_ptr"][:-1]).long()),
+        f["h_val"].abs()).max())
+    rho = L / max(float((f["m_val"].double() ** 2).sum()), 1e-12)
+    args = [torch.as_tensor(a, dtype=torch.float32, device=dev)
+            for a in (x0, lam, lb, ub)]
+    return args, terms, 1.0 / (2 * L), rho
+
+
+def _chunk_both(prob, S, n_it, dev, seed=0):
+    (x0, lam, lb, ub), terms, step, rho = _chunk_inputs(prob, S, dev, seed)
+    before = kqf.KERNEL.launches
+    stats = torch.zeros(S, 2, dtype=torch.int32, device=dev)
+    got = kqf.fista_chunk(x0, lam, lb, ub, n_it, terms, step, rho, stats=stats)
+    assert kqf.KERNEL.launches == before + 1
+    want = kqf.fista_chunk_plain(x0, lam, lb, ub, n_it, terms, step, rho)
+    assert got.shape == want.shape == (S, prob.n)
+    err = float((got - want).abs().max())
+    assert err <= QUANT_CHUNK_TOL * max(1.0, float(want.abs().max())), err
+    # the kernel stays in the bounds and counts the coordinates with lb < ub
+    assert bool(((got >= lb) & (got <= ub)).all())
+    assert torch.equal(stats[:, 1].long().cpu(), (lb < ub).sum(1).cpu())
+    return stats
+
+
+@pytest.mark.parametrize("kind", list(QUANT_KINDS))
+@pytest.mark.parametrize("S", [1, 64])
+def test_quant_fista_kernel_matches_plain(cuda_device, kind, S):
+    """A chunk of the solver's 333 iterations, with and without C2 rows,
+    one problem and a batch of 64 subsets."""
+    prob = quant_problem({"unconstrained": 1000, "constrained": 7000,
+                          "beyond_cap": 42000, "total_binds": 1001}[kind],
+                         **QUANT_KINDS[kind])
+    assert (len(prob.c2_species) > 0) == (kind == "constrained")
+    stats = _chunk_both(prob, S, 333, cuda_device, seed=S)
+    if kind == "total_binds":
+        assert int(stats[:, 0].sum()) > 0     # the projection's grid ran
+
+
+@pytest.mark.parametrize("S", [1, 256])
+def test_quant_fista_kernel_config3_width(cuda_device, S):
+    """n = 1001 (config #3's genome slots) with C2 rows and a TOTAL row
+    that binds, one problem and the enumeration's 256 subsets, each at
+    the solver's chunk length (333 iterations, 200 for the enumeration)."""
+    prob = quant_problem(5, n_sp=1000, per_genome_u=4, n_d=600,
+                         easy_thres=30, total_slack=(0.5, 0.6), ilp_alpha=1e-4)
+    assert len(prob.c2_species) > 100
+    stats = _chunk_both(prob, S, 333 if S == 1 else 200, cuda_device, seed=S)
+    if S == 1:
+        assert int(stats[0, 0]) > 0     # the projection's grid ran
+
+
+@pytest.mark.parametrize("n_sp", [6399, 6400])
+def test_quant_fista_kernel_past_shared_memory(cuda_device, n_sp):
+    """n = 6400 fills the kernel's shared-memory working set to its cap;
+    n = 6401 is one past it and runs from the wrapper's device scratch."""
+    prob = quant_problem(6, n_sp=n_sp, per_genome_u=2, n_d=3000)
+    words = kqf.scratch_words(prob.n, len(prob.c2_species))
+    assert (4 * words > kqf.smem_cap()) == (n_sp == 6400)
+    _chunk_both(prob, 2, 20, cuda_device)
+
+
+def test_quant_fista_kernel_edges(cuda_device):
+    """No iteration returns the start; a 1-d start gives a 1-d result; a
+    chunk makes no host sync; terms made for the CPU and a float64 start
+    are refused."""
+    prob = quant_problem(7000, **QUANT_CONSTRAINED)
+    (x0, lam, lb, ub), terms, step, rho = _chunk_inputs(prob, 3, cuda_device, 1)
+    assert torch.equal(kqf.fista_chunk(x0, lam, lb, ub, 0, terms, step, rho), x0)
+    got = kqf.fista_chunk(x0[0], lam[0], lb[0], ub[0], 50, terms, step, rho)
+    want = kqf.fista_chunk(x0[:1], lam[:1], lb[:1], ub[:1], 50, terms, step, rho)
+    assert got.shape == (prob.n,) and torch.equal(got, want[0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kqf.fista_chunk(x0, lam, lb, ub, 50, terms, step, rho)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    with pytest.raises(ValueError):
+        kqf.fista_chunk(x0, lam, lb, ub, 5, kqf.fista_terms(prob, "cpu"),
+                        step, rho)
+    with pytest.raises(TypeError):
+        kqf.fista_chunk(x0.double(), lam, lb, ub, 5, terms, step, rho)
+
+
+@pytest.mark.parametrize("seed,kind,enum_cap", [
+    (1000, "unconstrained", 6), (1002, "unconstrained", 6),
+    (7000, "constrained", 6), (7001, "constrained", 6),
+    (42000, "beyond_cap", 6), (91001, "beyond_cap", 4)])
+def test_solve_quant_cuda_matches_cpu(cuda_device, seed, kind, enum_cap):
+    """The whole solve on the card (every chunk one launch) against the
+    same solve on the CPU (the plain version): the same EXIST set,
+    abundances within 1e-3 L1 and the same stopped_by."""
+    prob = quant_problem(seed, **QUANT_KINDS[kind])
+    opts = dict(iters=1800, outer=6, enum_cap=enum_cap, enum_iters=400)
+    before = kqf.KERNEL.launches
+    ge, gc, gi = solve_quant(prob, device="cuda", **opts)
+    assert kqf.KERNEL.launches - before == gi["fista_chunks"] > 0
+    we, wc, wi = solve_quant(prob, device="cpu", **opts)
+    np.testing.assert_array_equal(ge, we)
+    assert np.abs(gc / gc[ge].sum() - wc / wc[we].sum()).sum() <= 1e-3
+    assert gi["stopped_by"] == wi["stopped_by"]
+    assert ge.any()

@@ -451,3 +451,110 @@ def assemble_oracle(mrow, me, counts, prec, O, B, maxm, eu):
         for k, g in enumerate(gids[:maxm]):
             slots[r, k], rid1[r, k], rid2[r, k] = by_gid[g]
     return slots, rid1, rid2, (slots < big) & (slots < eu), over
+
+
+# ---- quantification problems (models/quant.py)
+
+def fake_index(rid1, rid2, uc1, uc2, length, is_doubly):
+    """``tests/test_quant_exact.py:fake_index`` with the port's FlatIndex:
+    entries only, an empty hash table (build_problem reads no key)."""
+    from cammiq_tpu_torch.index.table import FlatIndex
+
+    E = len(rid1)
+    kw = 4
+    return FlatIndex(
+        h=26, kw=kw,
+        key_words=np.zeros((E, kw), np.uint32),
+        length=np.asarray(length, np.int32),
+        rid1=np.asarray(rid1, np.int32), rid2=np.asarray(rid2, np.int32),
+        ucount1=np.asarray(uc1, np.int32), ucount2=np.asarray(uc2, np.int32),
+        table_lo=np.zeros(8, np.uint32), table_hi=np.zeros(8, np.uint32),
+        table_start=np.full(8, -1, np.int32), table_count=np.zeros(8, np.int32),
+        max_probes=1, max_bucket=1, is_doubly=is_doubly,
+    )
+
+
+def make_instance(rng, n_sp=6, per_genome_u=3, n_d=9, easy_thres=10**9,
+                  rl=100, erate=0.0, total_slack=(0.95, 1.6),
+                  ilp_alpha=0.0):
+    """``tests/test_quant_exact.py:make_instance`` without the JAX package
+    (the same draws from ``rng``, the port's FlatIndex and FineParams): a
+    random instance in which every genome survives the pre-filter."""
+    from cammiq_tpu_torch.config import FineParams
+
+    n = n_sp + 1
+    rid1_u = np.repeat(np.arange(1, n), per_genome_u)
+    uc1_u = rng.integers(1, 4, size=len(rid1_u))
+    len_u = rng.integers(28, 48, size=len(rid1_u))
+    index_u = fake_index(rid1_u, np.zeros_like(rid1_u), uc1_u,
+                         np.zeros_like(uc1_u), len_u, False)
+    g1 = rng.integers(1, n, size=n_d)
+    off = rng.integers(1, n_sp, size=n_d)
+    g2 = (g1 - 1 + off) % n_sp + 1
+    lo, hi = np.minimum(g1, g2), np.maximum(g1, g2)
+    uc1_d = rng.integers(1, 4, size=n_d)
+    uc2_d = rng.integers(1, 4, size=n_d)
+    len_d = rng.integers(28, 48, size=n_d)
+    index_d = fake_index(lo, hi, uc1_d, uc2_d, len_d, True)
+
+    present = rng.random(n) < 0.55
+    present[0] = False
+    cov = np.where(present, rng.uniform(0.3, 4.0, size=n), 0.0)
+
+    def wcov(uc, depth):
+        return uc * (rl - depth) / rl * (1.0 - erate) ** depth
+
+    w_u = wcov(uc1_u.astype(float), len_u.astype(float))
+    rc_u = np.maximum(
+        np.round(w_u * cov[rid1_u]
+                 + rng.normal(0, 0.08, size=len(rid1_u))
+                 + (rng.random(len(rid1_u)) < 0.15) * rng.integers(0, 2, len(rid1_u))),
+        0.0,
+    )
+    w1_d = wcov(uc1_d.astype(float), len_d.astype(float))
+    w2_d = wcov(uc2_d.astype(float), len_d.astype(float))
+    rc_d = np.maximum(
+        np.round(w1_d * cov[lo] + w2_d * cov[hi]
+                 + rng.normal(0, 0.08, size=n_d)),
+        0.0,
+    )
+
+    nus = rng.integers(10, 60, size=n).astype(np.float64)
+    nds = rng.integers(5, 30, size=n).astype(np.float64)
+    sum_rc_u = np.zeros(n)
+    np.add.at(sum_rc_u, rid1_u, rc_u)
+    sum_rc_d = np.zeros(n)
+    np.add.at(sum_rc_d, lo, rc_d)
+    np.add.at(sum_rc_d, hi, rc_d)
+    cnts_u = np.floor(sum_rc_u * rng.uniform(0.8, 0.95, size=n))
+    cnts_d = np.floor(sum_rc_d * rng.uniform(0.7, 0.9, size=n))
+    glength = rng.integers(50_000, 100_000, size=n).astype(np.int64)
+    glength[0] = 0
+    tot = float(np.dot(cov, glength) / rl)
+    num_reads = int(np.ceil(max(tot, 1.0) * rng.uniform(*total_slack)))
+    fine = FineParams(read_cnt_thres=1, easy_to_identify_thres=easy_thres,
+                      ilp_epsilon=0.01, ilp_alpha=ilp_alpha, max_cov=100.0)
+    return dict(index_u=index_u, index_d=index_d, rcount_u=rc_u,
+                rcount_d=rc_d, cnts_u=cnts_u, cnts_d=cnts_d, nus=nus,
+                nds=nds, glength=glength, rl=rl, num_reads=num_reads,
+                erate=erate, fine=fine)
+
+
+# the instance kinds of tests/test_quant_exact.py and
+# tests/test_quant_beyond_cap.py: make_instance keyword arguments
+QUANT_UNCONSTRAINED = {}
+QUANT_CONSTRAINED = dict(n_sp=5, easy_thres=30, total_slack=(1.15, 1.6),
+                         ilp_alpha=1e-4)
+QUANT_BEYOND_CAP = dict(n_sp=11, per_genome_u=3, n_d=12)
+
+
+def quant_problem(seed, **kw):
+    """``models.quant.build_problem`` of ``make_instance`` (seed, kw)."""
+    from cammiq_tpu_torch.models.quant import build_problem
+
+    inst = make_instance(np.random.default_rng(seed), **kw)
+    return build_problem(
+        inst["index_u"], inst["index_d"], inst["rcount_u"], inst["rcount_d"],
+        inst["cnts_u"], inst["cnts_d"], inst["nus"], inst["nds"],
+        inst["glength"], inst["rl"], inst["num_reads"], inst["erate"],
+        inst["fine"])

@@ -1,0 +1,8 @@
+"""``idle_pct``'s reader (``idle_pct.py``) in a cell that reports
+``device_ms_per_mread`` in place of ``reads_per_s``."""
+
+import os
+import runpy
+
+read = runpy.run_path(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                   "idle_pct.py"))["read"]

@@ -1,0 +1,8 @@
+"""``pass_ms``'s reader (``pass_ms.py``) in a cell that reports
+``device_ms_per_mread`` in place of ``reads_per_s``."""
+
+import os
+import runpy
+
+read = runpy.run_path(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                   "pass_ms.py"))["read"]

@@ -1,0 +1,1 @@
+"""The plain reference that decides `correct`: plain torch and numpy, importing nothing of the port."""

@@ -47,6 +47,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from ..utils.timing import spanned
+
 FORMAT = "cammiq-tpu-merged"
 VERSION = 1
 
@@ -150,6 +152,7 @@ class MergedArtifact:
     cuckoo: Optional[np.ndarray] = None  # memmap uint32 [2^cuckoo_log, 12]
     cuckoo_log: int = 0
 
+    @spanned("session.open")
     def payloads(self) -> Tuple[EntryPayloads, Optional[EntryPayloads]]:
         """(unique, doubly-or-None) original-order payload tables."""
         def mm(name):
@@ -187,6 +190,7 @@ class MergedArtifact:
         )
 
 
+@spanned("session.open")
 def load_merged_artifact(path: str) -> MergedArtifact:
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)

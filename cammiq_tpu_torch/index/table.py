@@ -30,6 +30,7 @@ from typing import Tuple
 import numpy as np
 
 from ..ops.packing import SYMBOL_IDX, length_masks, rev2bit_u32
+from ..utils.timing import spanned
 from .sparsify import SelectedSubstrings
 
 _HASH_C1 = np.uint32(0x85EBCA6B)
@@ -332,6 +333,7 @@ def save_flat_index(path: str, idx: FlatIndex) -> None:
     )
 
 
+@spanned("session.open")
 def load_flat_index_pair(path_u: str, path_d):
     """Load the unique+doubly tables concurrently (2 decompression
     threads; zlib releases the GIL on large buffers).  The reference

@@ -24,6 +24,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from ..utils.timing import span
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
@@ -99,10 +101,13 @@ def build() -> Path:
 
 
 def load() -> ctypes.CDLL:
+    """The kernel library, built where missing and opened at the first
+    call (the span ``kernels.load``)."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+            with span("kernels.load"):
+                lib = ctypes.CDLL(str(build()))
             lib.cammiq_error_string.argtypes = [ctypes.c_int]
             lib.cammiq_error_string.restype = ctypes.c_char_p
             _lib = lib

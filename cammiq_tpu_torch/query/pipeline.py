@@ -59,7 +59,7 @@ from ..index.table import FlatIndex, _empty_flat_index
 from ..io.fastq import ReadSet
 from ..parallel.dist_query import DistSortJoinSession
 from ..parallel.mesh import ProcessGrid
-from ..utils.timing import Timings, stage_timer
+from ..utils.timing import Timings, span, stage_timer
 from . import classify as gather
 from .merged import build_merged_index
 from .probe import to_device_index
@@ -104,13 +104,14 @@ class QuerySession:
         if engine == "gather" and grid is None:
             self._init_gather(index_u, index_d, num_genome_slots, cfg, dev)
         else:
-            merged = build_merged_index(index_u, index_d)
-            if grid is None:
-                self._init(TorchMergedIndex.from_merged(merged, dev),
-                           num_genome_slots, cfg)
-            else:
-                ds = DistSortJoinSession.from_merged(grid, merged, dev)
-                self._init(ds.dm, num_genome_slots, cfg, ds)
+            with span("session.index_to_device"):
+                merged = build_merged_index(index_u, index_d)
+                if grid is None:
+                    dm, ds = TorchMergedIndex.from_merged(merged, dev), None
+                else:
+                    ds = DistSortJoinSession.from_merged(grid, merged, dev)
+                    dm = ds.dm
+            self._init(dm, num_genome_slots, cfg, ds)
         if index_d is not None and index_d.num_entries:
             self._pair_src = (index_d.rid1, index_d.rid2)
 
@@ -122,12 +123,13 @@ class QuerySession:
         a grid the rank reads only its shard's pages of the memmaps."""
         self = cls.__new__(cls)
         dev = resolve_device(device)
-        if grid is None:
-            self._init(TorchMergedIndex.from_artifact(artifact, dev),
-                       num_genome_slots, cfg)
-        else:
-            ds = DistSortJoinSession.from_artifact(grid, artifact, dev)
-            self._init(ds.dm, num_genome_slots, cfg, ds)
+        with span("session.index_to_device"):
+            if grid is None:
+                dm, ds = TorchMergedIndex.from_artifact(artifact, dev), None
+            else:
+                ds = DistSortJoinSession.from_artifact(grid, artifact, dev)
+                dm = ds.dm
+        self._init(dm, num_genome_slots, cfg, ds)
         if artifact.ed:
             prec = np.asarray(artifact.prec)
             dd = prec[prec[:, 0] >= artifact.eu]
@@ -152,8 +154,9 @@ class QuerySession:
         if index_d is None:
             # what the JAX session builds: an empty selection at Lmax 32
             index_d = _empty_flat_index(index_u.h, 2, True)
-        self.didx_u = to_device_index(index_u, dev)
-        self.didx_d = to_device_index(index_d, dev)
+        with span("session.index_to_device"):
+            self.didx_u = to_device_index(index_u, dev)
+            self.didx_d = to_device_index(index_d, dev)
         # doubly ids start past the unique table's DEVICE length (1 for an
         # empty table: its dummy entry), so the rcount buffer does too
         self._init_common("gather", dev, num_genome_slots, cfg,
@@ -184,18 +187,27 @@ class QuerySession:
         index can assign (case_pair always assigns a pair some doubly
         entry carries), built on the first sc-mode pass."""
         if self._pair_keys is None:
-            keys = np.zeros(0, np.int64)
-            if self._pair_src is not None:
-                r1, r2 = (np.asarray(r, np.int64) for r in self._pair_src)
-                keys = np.unique((np.minimum(r1, r2) << 32) | np.maximum(r1, r2))
-            self._pair_keys_host = keys
-            self._pair_keys = torch.from_numpy(keys).to(self.device)
+            with span("session.pair_keys"):
+                keys = np.zeros(0, np.int64)
+                if self._pair_src is not None:
+                    r1, r2 = (np.asarray(r, np.int64) for r in self._pair_src)
+                    keys = np.unique((np.minimum(r1, r2) << 32) | np.maximum(r1, r2))
+                self._pair_keys_host = keys
+                self._pair_keys = torch.from_numpy(keys).to(self.device)
         return self._pair_keys
 
     def _run_pass(self, reads: ReadSet, bs: int, with_rcounts: bool,
                   sc_mode: bool):
         """One pass over the reads; host dict of counts, or None after an
-        overflow (the capacity that overflowed is then widened)."""
+        overflow (the capacity that overflowed is then widened).  Its span
+        ``query.pass`` holds each batch's ``pass.stage`` (the batch made
+        and copied into the upload ring), ``pass.upload_wait``,
+        ``pass.classify`` (the host's issue of the batch's device work)
+        and ``pass.pair_lookup``, folded, and the end's ``pass.drain``."""
+        with span("query.pass"):
+            return self._pass(reads, bs, with_rcounts, sc_mode)
+
+    def _pass(self, reads, bs, with_rcounts, sc_mode):
         G = self.num_genome_slots
         dev = self.device
         pk = self.pair_keys() if sc_mode else None
@@ -222,26 +234,35 @@ class QuerySession:
         else:
             classify = partial(self.dist.classify_batch, maxm=self.maxm,
                                frac=self.frac)
-        for batch in reads.batches(bs):
+        batches = reads.batches(bs)
+        while True:
+            with span("pass.stage", fold=True):
+                batch = next(batches, None)
+            if batch is None:
+                break
             codes, lengths = upload(batch.codes[rows], batch.lengths[rows])
-            out = classify(codes, lengths, G, rcount=acc.get("rcount"),
-                           sc_mode=sc_mode, counts=counts)
-            if out.overflow_slots is not None:   # the gather cannot overflow
-                torch.maximum(acc["ovs"], out.overflow_slots, out=acc["ovs"])
-                torch.maximum(acc["ovh"], out.overflow_hits, out=acc["ovh"])
+            with span("pass.classify", fold=True):
+                out = classify(codes, lengths, G, rcount=acc.get("rcount"),
+                               sc_mode=sc_mode, counts=counts)
+                if out.overflow_slots is not None:  # the gather cannot overflow
+                    torch.maximum(acc["ovs"], out.overflow_slots, out=acc["ovs"])
+                    torch.maximum(acc["ovh"], out.overflow_hits, out=acc["ovh"])
             if out.cnts_u is None:      # a grid rank that only probes
                 continue
             if P:
-                q = (out.pair_lo.to(torch.int64) << 32) | out.pair_hi.to(torch.int64)
-                i = torch.searchsorted(pk, q).clamp_(max=P - 1)
-                hit = (out.pair_lo >= 0) & (pk[i] == q)
-                acc["pairacc"].index_add_(
-                    0, torch.where(hit, i, P),
-                    torch.ones_like(i, dtype=torch.int32))
-        if grid is not None:        # the pass's one reduction
-            dist.all_reduce(buf, group=grid.group)
-        host = dict(zip(sizes, np.split(buf.cpu().numpy(),  # the pass's sync
-                                        np.cumsum(list(sizes.values()))[:-1])))
+                with span("pass.pair_lookup", fold=True):
+                    q = ((out.pair_lo.to(torch.int64) << 32)
+                         | out.pair_hi.to(torch.int64))
+                    i = torch.searchsorted(pk, q).clamp_(max=P - 1)
+                    hit = (out.pair_lo >= 0) & (pk[i] == q)
+                    acc["pairacc"].index_add_(
+                        0, torch.where(hit, i, P),
+                        torch.ones_like(i, dtype=torch.int32))
+        with span("pass.drain"):
+            if grid is not None:        # the pass's one reduction
+                dist.all_reduce(buf, group=grid.group)
+            host = dict(zip(sizes, np.split(buf.cpu().numpy(),  # the pass's sync
+                                            np.cumsum(list(sizes.values()))[:-1])))
         ovs, ovh = int(host["ovs"][0]), int(host["ovh"][0])
         if ovs:
             self.maxm *= 2
@@ -270,7 +291,14 @@ class QuerySession:
             verbose: bool = False) -> QueryCounts:
         """Classify every read.  ``with_rcounts=False`` skips the
         per-entry counts (Type-I output needs only ``cnts_u``); sc mode
-        takes none, as the JAX session, and fills ``pair_counts``."""
+        takes none, as the JAX session, and fills ``pair_counts``.  Timed
+        as the stage ``query`` and the span ``query.run``."""
+        with stage_timer("query", timings, verbose, span_name="query.run",
+                         read_set=reads.name):
+            return self._run(reads, sc_mode, with_rcounts)
+
+    def _run(self, reads: ReadSet, sc_mode: bool,
+             with_rcounts: bool) -> QueryCounts:
         with_rcounts = with_rcounts and not sc_mode
         bs = self.batch_size(reads)
         if reads.num_reads:
@@ -281,11 +309,10 @@ class QuerySession:
                 reads = ReadSet(codes=reads.codes[:, :lp_eff],
                                 lengths=reads.lengths,
                                 total_len=reads.total_len, name=reads.name)
-        with stage_timer("query", timings, verbose):
-            while True:
-                host = self._run_pass(reads, bs, with_rcounts, sc_mode)
-                if host is not None:
-                    break
+        while True:
+            host = self._run_pass(reads, bs, with_rcounts, sc_mode)
+            if host is not None:
+                break
         eu, ed, d0 = self.num_entries_u, self.num_entries_d, self._rc_d0
         rc = (host["rcount"].astype(np.int64) if with_rcounts
               else np.zeros(self._rc_size, np.int64))
@@ -323,8 +350,9 @@ class _Upload:
     def __call__(self, codes: np.ndarray, lengths: np.ndarray):
         lengths = lengths.astype(np.int32, copy=False)
         if self.device.type != "cuda":
-            return (torch.from_numpy(codes).to(self.device).contiguous(),
-                    torch.from_numpy(lengths).to(self.device))
+            with span("pass.stage", fold=True):
+                return (torch.from_numpy(codes).to(self.device).contiguous(),
+                        torch.from_numpy(lengths).to(self.device))
         if len(self.ring) < self.DEPTH:
             self.ring.append((torch.empty(codes.shape, dtype=torch.int8,
                                           pin_memory=True),
@@ -333,10 +361,12 @@ class _Upload:
                               torch.cuda.Event()))
         hc, hl, done = self.ring[self.k % self.DEPTH]
         self.k += 1
-        done.synchronize()          # this buffer's copy of two batches back
-        hc.numpy()[...] = codes
-        hl.numpy()[...] = lengths
-        dc = hc.to(self.device, non_blocking=True)
-        dl = hl.to(self.device, non_blocking=True)
-        done.record(torch.cuda.current_stream(self.device))
+        with span("pass.upload_wait", fold=True):
+            done.synchronize()      # this buffer's copy of two batches back
+        with span("pass.stage", fold=True):
+            hc.numpy()[...] = codes
+            hl.numpy()[...] = lengths
+            dc = hc.to(self.device, non_blocking=True)
+            dl = hl.to(self.device, non_blocking=True)
+            done.record(torch.cuda.current_stream(self.device))
         return dc, dl

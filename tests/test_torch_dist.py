@@ -610,6 +610,25 @@ def test_cli_profile_writes_a_trace(toy, tmp_path, profile):
             assert json.load(f)["traceEvents"]
 
 
+def test_cli_profile_trace_holds_the_program_spans(toy, tmp_path):
+    """``--profile DIR``'s trace names the program's spans, the query's
+    pass and its batches among them, and the tracer is off after it."""
+    from cammiq_tpu_torch.utils.timing import TRACER, take
+
+    d = tmp_path / "p"
+    cli.main(_cli_query(toy, "typeI", tmp_path / "o.out", "--profile", str(d)))
+    with open(trace_path(str(d))) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert {"query.run", "query.pass", "pass.stage", "pass.classify",
+            "pass.drain"} <= names
+    # each with the read set it serves
+    sets = {e["args"].get("read_set") for e in events
+            if e.get("name", "").startswith(("query.", "pass."))}
+    assert len(sets) == 1 and sets.pop()
+    assert not TRACER.on and take().spans == []
+
+
 def test_grid_rejects_a_foreign_backend(tmp_path):
     """A CUDA grid over gloo is refused: there is no fallback."""
     store = torch.distributed.HashStore()

@@ -5,8 +5,12 @@ MIQP (src/query.cpp:1082-1298) as a relaxed box-QP by FISTA projected
 gradient + augmented Lagrangian, then the windowed 2^m EXIST-subset sweep
 and the exact branch-and-bound with the certified host bound.  The problem
 is built on the host by ``build_problem`` and the B&B bound is
-``_make_host_bound``: with ``prefilter`` and ``QuantProblem`` they are
-copies of ``cammiq_tpu/models/quant.py`` (41-255).
+``_make_host_bound``: ``prefilter``, ``QuantProblem`` and the bound are
+copies of ``cammiq_tpu/models/quant.py`` (41-255).  ``build_problem`` is
+held to its source by output, array for array and byte for byte: where
+the source passes over every unique entry each sample, it groups the
+entries by owner genome once for each index object (``OwnerGroups``) and
+then touches only the entries of the genomes that passed the prefilter.
 
 Differences from the JAX version, none of which changes what is solved:
   * the quadratic's gradient is written out; the Hessian-vector product of
@@ -31,6 +35,7 @@ import heapq
 import sys
 import time
 import warnings
+import weakref
 from typing import Optional, Tuple
 
 import numpy as np
@@ -99,6 +104,54 @@ class QuantProblem:
     max_cov: float
 
 
+# OwnerGroups.of's memo: id(index) -> {n: OwnerGroups}; an index's entry
+# goes when the index is collected (the columns are read-only after build)
+_GROUPS: dict = {}
+
+
+@dataclasses.dataclass
+class OwnerGroups:
+    """A unique table's entries grouped by their owner genome
+    clip(rid1, 0, n - 1), for one n: ``size`` the entries each genome owns
+    (``build_problem``'s map_sp sizes), and ``perm`` the entries by owner,
+    each genome's at ``perm[off[g]:off[g + 1]]`` in index order (int32,
+    as the table's own row numbers are)."""
+
+    size: np.ndarray            # int64 [n]
+    off: np.ndarray             # int64 [n + 1]
+    perm: np.ndarray            # int32 [E]
+
+    @classmethod
+    def of(cls, index, n: int) -> "OwnerGroups":
+        """The grouping of ``index``'s entries, made once for each index
+        object and ``n``."""
+        memo = _GROUPS.get(id(index))
+        if memo is None:
+            memo = _GROUPS[id(index)] = {}
+            weakref.finalize(index, _GROUPS.pop, id(index), None)
+        g = memo.get(n)
+        if g is None:
+            with span("problem.group_owners", fold=True):
+                owner = np.clip(index.rid1, 0, n - 1).astype(
+                    np.int16 if n <= np.iinfo(np.int16).max else np.int32)
+                size = np.bincount(owner, minlength=n).astype(np.int64)
+                # a stable sort of 16-bit keys is NumPy's radix sort
+                g = memo[n] = cls(
+                    size=size, off=np.concatenate([[0], np.cumsum(size)]),
+                    perm=np.argsort(owner, kind="stable").astype(np.int32))
+        return g
+
+    def kept(self, exist0: np.ndarray) -> np.ndarray:
+        """``np.flatnonzero(exist0[clip(rid1, 0, n - 1)])``: the entries
+        whose owner passed the prefilter, in index order."""
+        parts = [self.perm[self.off[g]:self.off[g + 1]]
+                 for g in np.flatnonzero(exist0)]
+        kept = np.concatenate(parts) if parts else self.perm[:0]
+        # NumPy sorts 32-bit keys twice as fast as 64-bit ones; the
+        # gathers then take intp, which they would each convert to
+        return np.sort(kept).astype(np.intp)
+
+
 @spanned("quant.build_problem")
 def build_problem(
     index_u: FlatIndex,
@@ -116,9 +169,13 @@ def build_problem(
     fine: FineParams,
 ) -> QuantProblem:
     """The QP of one sample, in the spans ``problem.prefilter``,
-    ``problem.entry_sizes`` and ``problem.entry_weights`` (over every
-    entry), ``problem.terms`` (the prefilter's terms) and
-    ``problem.bounds``."""
+    ``problem.entry_sizes`` (the unique table's ``OwnerGroups``, whose
+    first making for an index and n is the folded span
+    ``problem.group_owners``, and the doubly table's sizes),
+    ``problem.entry_weights`` (the kept unique entries and their
+    weights), ``problem.terms`` and ``problem.bounds``.
+    Every array is gathered from the kept entries in index order, so each
+    value and each ``np.add.at`` is the source's, in its order."""
     n = cnts_u.shape[0]
     with span("problem.prefilter"):
         exist0 = prefilter(cnts_u, cnts_d, nus, nds, fine)
@@ -128,9 +185,8 @@ def build_problem(
 
     # map_sp sizes: unique entries under rid1; doubly under both rids
     with span("problem.entry_sizes"):
-        size_u = np.zeros(n, np.int64)
         if has_u:
-            np.add.at(size_u, np.clip(index_u.rid1.astype(np.int64), 0, n - 1), 1)
+            groups = OwnerGroups.of(index_u, n)
         size_d = np.zeros(n, np.int64)
         if has_d:
             np.add.at(size_d, np.clip(index_d.rid1.astype(np.int64), 0, n - 1), 1)
@@ -139,15 +195,12 @@ def build_problem(
     def wcov(uc, depth):
         return uc * (rl - depth) / rl * np.power(1.0 - erate, depth)
 
-    # every entry's weight, whichever genomes passed the prefilter
+    # the weights of the prefilter's unique entries; every doubly entry's
     with span("problem.entry_weights"):
         if has_u:
-            g_all = index_u.rid1.astype(np.int64)
-            w_all = wcov(index_u.ucount1.astype(np.float64),
-                         index_u.length.astype(np.float64))
-        else:
-            w_all = np.zeros(0, np.float64)
-            g_all = np.zeros(0, np.int64)
+            kept = groups.kept(exist0)
+            uw = wcov(index_u.ucount1[kept].astype(np.float64),
+                      index_u.length[kept].astype(np.float64))
         if has_d:
             r1 = index_d.rid1.astype(np.int64)
             r2 = index_d.rid2.astype(np.int64)
@@ -159,16 +212,14 @@ def build_problem(
     with span("problem.terms"):
         # ---- unique terms (entries of existing species) ----
         if has_u:
-            keep = exist0[np.clip(g_all, 0, n - 1)]
-            ug = g_all[keep]
-            uw = w_all[keep]
-            ur = rcount_u[keep].astype(np.float64)
-            # size_u[ug] >= 1 for every realized term (the owner genome
+            ug = index_u.rid1[kept].astype(np.int64)
+            ur = rcount_u[kept].astype(np.float64)
+            # size[ug] >= 1 for every realized term (the owner genome
             # owns this very entry), so the max() guard never changes a
             # value; the reference's float division (1000.0/size,
             # src/query.cpp:1155) yields inf only for empty substring
             # lists, which contribute no terms in either implementation
-            uf = 1000.0 / np.maximum(size_u[ug], 1)
+            uf = 1000.0 / np.maximum(groups.size[ug], 1)
         else:
             ug = np.zeros(0, np.int64)
             uw = ur = uf = np.zeros(0, np.float64)
@@ -198,9 +249,7 @@ def build_problem(
         ub = np.where(exist0, fine.max_cov, 0.0)
         # unique coverage constraint collapses to a per-species lower bound
         sumw_u = np.zeros(n, np.float64)
-        if has_u:
-            keep = exist0[np.clip(g_all, 0, n - 1)]
-            np.add.at(sumw_u, g_all[keep], w_all[keep])
+        np.add.at(sumw_u, ug, uw)
         constrained = exist0 & (nus >= fine.easy_to_identify_thres)
         with np.errstate(divide="ignore", invalid="ignore"):
             lb_c = np.where(

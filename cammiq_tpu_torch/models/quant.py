@@ -171,9 +171,11 @@ def build_problem(
     """The QP of one sample, in the spans ``problem.prefilter``,
     ``problem.entry_sizes`` (the unique table's ``OwnerGroups``, whose
     first making for an index and n is the folded span
-    ``problem.group_owners``, and the doubly table's sizes),
-    ``problem.entry_weights`` (the kept unique entries and their
-    weights), ``problem.terms`` and ``problem.bounds``.
+    ``problem.group_owners``, and the doubly table's sizes,
+    ``problem.doubly_sizes``), ``problem.entry_weights`` (the kept unique
+    entries and their weights; every doubly entry's,
+    ``problem.doubly_weights``), ``problem.terms`` (the doubly ones in
+    ``problem.doubly_terms``) and ``problem.bounds``.
     Every array is gathered from the kept entries in index order, so each
     value and each ``np.add.at`` is the source's, in its order."""
     n = cnts_u.shape[0]
@@ -189,8 +191,9 @@ def build_problem(
             groups = OwnerGroups.of(index_u, n)
         size_d = np.zeros(n, np.int64)
         if has_d:
-            np.add.at(size_d, np.clip(index_d.rid1.astype(np.int64), 0, n - 1), 1)
-            np.add.at(size_d, np.clip(index_d.rid2.astype(np.int64), 0, n - 1), 1)
+            with span("problem.doubly_sizes"):
+                np.add.at(size_d, np.clip(index_d.rid1.astype(np.int64), 0, n - 1), 1)
+                np.add.at(size_d, np.clip(index_d.rid2.astype(np.int64), 0, n - 1), 1)
 
     def wcov(uc, depth):
         return uc * (rl - depth) / rl * np.power(1.0 - erate, depth)
@@ -202,12 +205,13 @@ def build_problem(
             uw = wcov(index_u.ucount1[kept].astype(np.float64),
                       index_u.length[kept].astype(np.float64))
         if has_d:
-            r1 = index_d.rid1.astype(np.int64)
-            r2 = index_d.rid2.astype(np.int64)
-            w1 = wcov(index_d.ucount1.astype(np.float64),
-                      index_d.length.astype(np.float64))
-            w2 = wcov(index_d.ucount2.astype(np.float64),
-                      index_d.length.astype(np.float64))
+            with span("problem.doubly_weights"):
+                r1 = index_d.rid1.astype(np.int64)
+                r2 = index_d.rid2.astype(np.int64)
+                w1 = wcov(index_d.ucount1.astype(np.float64),
+                          index_d.length.astype(np.float64))
+                w2 = wcov(index_d.ucount2.astype(np.float64),
+                          index_d.length.astype(np.float64))
 
     with span("problem.terms"):
         # ---- unique terms (entries of existing species) ----
@@ -228,21 +232,22 @@ def build_problem(
         downer = dg1 = dg2 = np.zeros(0, np.int64)
         dw1 = dw2 = dr = df = np.zeros(0, np.float64)
         if has_d:
-            rr = rcount_d.astype(np.float64)
-            blocks = []
-            for owner_rid in (r1, r2):
-                keep = exist0[np.clip(owner_rid, 0, n - 1)]
-                blocks.append(
-                    (owner_rid[keep], r1[keep], r2[keep], w1[keep], w2[keep],
-                     rr[keep], 1000.0 / np.maximum(size_d[owner_rid[keep]], 1))
-                )
-            downer = np.concatenate([b[0] for b in blocks])
-            dg1 = np.concatenate([b[1] for b in blocks])
-            dg2 = np.concatenate([b[2] for b in blocks])
-            dw1 = np.concatenate([b[3] for b in blocks])
-            dw2 = np.concatenate([b[4] for b in blocks])
-            dr = np.concatenate([b[5] for b in blocks])
-            df = np.concatenate([b[6] for b in blocks])
+            with span("problem.doubly_terms"):
+                rr = rcount_d.astype(np.float64)
+                blocks = []
+                for owner_rid in (r1, r2):
+                    keep = exist0[np.clip(owner_rid, 0, n - 1)]
+                    blocks.append(
+                        (owner_rid[keep], r1[keep], r2[keep], w1[keep], w2[keep],
+                         rr[keep], 1000.0 / np.maximum(size_d[owner_rid[keep]], 1))
+                    )
+                downer = np.concatenate([b[0] for b in blocks])
+                dg1 = np.concatenate([b[1] for b in blocks])
+                dg2 = np.concatenate([b[2] for b in blocks])
+                dw1 = np.concatenate([b[3] for b in blocks])
+                dw2 = np.concatenate([b[4] for b in blocks])
+                dr = np.concatenate([b[5] for b in blocks])
+                df = np.concatenate([b[6] for b in blocks])
 
     # ---- bounds ----
     with span("problem.bounds"):
@@ -338,11 +343,17 @@ def solve_quant(prob: QuantProblem, iters: int = 2000, outer: int = 6,
                 device="cuda") -> Tuple[np.ndarray, np.ndarray, dict]:
     """Returns (exist, cov, info), as ``cammiq_tpu.models.quant.solve_quant``.
     ``info["stage_s"]`` holds the seconds of its stages, the spans
-    ``solve.prepare``, ``solve.relax``, ``solve.enum`` and ``solve.bnb``."""
+    ``solve.prepare``, ``solve.relax``, ``solve.enum`` and ``solve.bnb``;
+    its counters say what was solved: ``candidates`` (the prefilter's
+    kept genomes), ``c2_rows``, ``doubly_terms`` and ``fista_chunks``
+    (the FISTA chunks run, each one launch of ``quant_fista`` on the
+    card)."""
     t0 = time.perf_counter()
     n = prob.n
     if not prob.exist0.any():
-        return np.zeros(n, bool), np.zeros(n), {"solve_time": 0.0, "objective": 0.0}
+        return np.zeros(n, bool), np.zeros(n), {
+            "solve_time": 0.0, "objective": 0.0, "candidates": 0,
+            "c2_rows": 0, "doubly_terms": 0, "fista_chunks": 0}
     stages = Stages("solve.", t0)
     stages.begin("prepare")
     dev = resolve_device(device)
@@ -615,7 +626,7 @@ def solve_quant(prob: QuantProblem, iters: int = 2000, outer: int = 6,
         "solve_time": time.perf_counter() - t0,
         "objective": obj,
         "lipschitz": L,
-        "num_candidates": int(prob.exist0.sum()),
+        "candidates": int(prob.exist0.sum()),
         "free_candidates": n_free,
         "enum_size": S,
         "enum_rounds": rounds_used,
@@ -623,6 +634,7 @@ def solve_quant(prob: QuantProblem, iters: int = 2000, outer: int = 6,
         "exhaustive": n_free <= enum_cap or bnb_complete,
         "stopped_by": stopped_by,
         "c2_rows": C2,
+        "doubly_terms": len(prob.downer),
         "fista_chunks": chunks,
         "bnb_nodes": nodes,
         "bound_s": bound_s,
@@ -635,7 +647,7 @@ def solve_quant(prob: QuantProblem, iters: int = 2000, outer: int = 6,
             f"{stopped_by}); the selection is locally optimal but not "
             f"proven exact (raise --ilp_enum_cap or bnb_nodes)")
     if verbose:
-        print(f"[quant] candidates={info['num_candidates']} forced="
+        print(f"[quant] candidates={info['candidates']} forced="
               f"{int(forced.sum())} free={n_free} enum_subsets={S}x"
               f"{rounds_used} relax_chunks={chunks_used}x{chunk_iters} "
               f"L={L:.4g} C2_rows={C2}", file=sys.stderr)

@@ -181,6 +181,7 @@ class QuerySession:
         self._pair_src = None       # host (rid1, rid2) of the doubly entries
         self._pair_keys_host = None  # int64 [P], sorted
         self._pair_keys = None       # the same on the device
+        self._drain_buf = None       # pinned host copy of the counters (card)
 
     def pair_keys(self) -> torch.Tensor:
         """Sorted distinct ``lo << 32 | hi`` keys of every pair the doubly
@@ -261,7 +262,7 @@ class QuerySession:
         with span("pass.drain"):
             if grid is not None:        # the pass's one reduction
                 dist.all_reduce(buf, group=grid.group)
-            host = dict(zip(sizes, np.split(buf.cpu().numpy(),  # the pass's sync
+            host = dict(zip(sizes, np.split(self._drain(buf),  # the pass's sync
                                             np.cumsum(list(sizes.values()))[:-1])))
         ovs, ovh = int(host["ovs"][0]), int(host["ovh"][0])
         if ovs:
@@ -272,6 +273,20 @@ class QuerySession:
         if ovh:
             self.frac = self.frac // 2 if self.frac > 1 else 0
         return None if ovs or ovh else host
+
+    def _drain(self, buf: torch.Tensor) -> np.ndarray:
+        """The pass's counters on the host.  On a CUDA device they land in a
+        pinned buffer kept for the session, so the copy runs at the link's
+        rate instead of through a pageable bounce; the view is valid until
+        the next pass, and ``_run`` copies what it keeps out of it."""
+        if buf.device.type != "cuda":
+            return buf.cpu().numpy()
+        n = buf.numel()
+        if self._drain_buf is None or self._drain_buf.numel() < n:
+            self._drain_buf = torch.empty(n, dtype=buf.dtype, pin_memory=True)
+        out = self._drain_buf[:n]
+        out.copy_(buf)                  # blocking: the stream's work is done
+        return out.numpy()
 
     def batch_size(self, reads: ReadSet) -> int:
         """The configured batch, shrunk to the read count rounded up to a

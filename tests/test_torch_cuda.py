@@ -487,6 +487,28 @@ def test_session_cuda_matches_cpu(cuda_device, dist_index):
     assert (runs[1].nundet, runs[1].nconf) == (runs[0].nundet, runs[0].nconf)
 
 
+def test_session_drain_buffer_outlives_its_pass(cuda_device, dist_index):
+    """The pass's counters land in one pinned buffer kept for the session:
+    a result handed out stays as it was after later passes refill the
+    buffer, with and without rcounts, and each equals the CPU's."""
+    art, _, rs, G = dist_index
+    half = ReadSet(codes=rs.codes[::2], lengths=rs.lengths[::2],
+                   total_len=int(rs.lengths[::2].sum()), name="half")
+    cfg = QueryConfig(h=art.unique_index.h, batch_size=256)
+    cpu = QuerySession(art.unique_index, art.doubly_index, G, cfg, device="cpu")
+    sess = QuerySession(art.unique_index, art.doubly_index, G, cfg,
+                        device=cuda_device)
+    plan = [(rs, True), (half, True), (rs, False), (half, True)]
+    got = [sess.run(r, with_rcounts=w) for r, w in plan]
+    assert sess._drain_buf.is_pinned()
+    for g, (r, w) in zip(got, plan):
+        want = cpu.run(r, with_rcounts=w)
+        for f in ("cnts_u", "cnts_d", "rcount_u", "rcount_d"):
+            np.testing.assert_array_equal(getattr(g, f), getattr(want, f))
+        assert (g.nundet, g.nconf) == (want.nundet, want.nconf)
+    assert not np.array_equal(got[0].cnts_u, got[1].cnts_u)
+
+
 @pytest.mark.parametrize("sc_mode", [False, True])
 def test_session_hit_overflow_cuda_matches_cpu(cuda_device, dist_index, sc_mode,
                                                monkeypatch):

@@ -183,7 +183,8 @@ def test_two_values_of_n_on_one_index(tables, source):
 def test_grouping_made_once_under_its_span(tables, case):
     """The folded ``problem.group_owners`` counts the memo's misses (1,
     then none) inside ``problem.entry_sizes``; the five ``problem.*``
-    records keep their order, once a call, and nothing else folds."""
+    records keep their order, once a call, the doubly table's three
+    inside their parents, and nothing else folds."""
     index_u, index_d = tables["flat"]
     _forget(index_u)
     args, _ = _inputs(index_u, index_d, N_WIDE, _genomes(case, index_u, N_WIDE))
@@ -195,9 +196,14 @@ def test_grouping_made_once_under_its_span(tables, case):
         _assert_same(on, off)
         rec = take()
         (whole,) = [s for s in rec.spans if s.name == "quant.build_problem"]
-        stages = [s for s in rec.spans if s.name.startswith("problem.")]
+        stages = [s for s in rec.spans if s.parent is whole]
         assert [s.name for s in stages] == PROBLEM_SPANS
-        assert all(s.parent is whole for s in stages)
+        doubly = [s for s in rec.spans if s.name.startswith("problem.doubly_")]
+        assert [(s.name, s.parent) for s in doubly] == [
+            ("problem.doubly_sizes", stages[1]),
+            ("problem.doubly_weights", stages[2]),
+            ("problem.doubly_terms", stages[3])]
+        assert len(rec.spans) == 1 + len(stages) + len(doubly)
         tot = rec.totals()
         if first:
             assert tot["problem.group_owners"][0] == 1
@@ -205,7 +211,7 @@ def test_grouping_made_once_under_its_span(tables, case):
         else:
             assert "problem.group_owners" not in tot
             assert not stages[1].folded
-        assert all(not s.folded for s in stages[2:])
+        assert all(not s.folded for s in stages[2:] + doubly)
 
 
 def test_memo_goes_with_its_index():

@@ -257,12 +257,19 @@ def test_build_problem_bit_identical_with_the_tracer_on(pairs, source):
     _assert_same_problem(on, off)
     rec = take()
     (whole,) = _named(rec, "quant.build_problem")
-    stages = [s for s in rec.spans if s.name.startswith("problem.")]
+    stages = [s for s in rec.spans if s.parent is whole]
     assert [s.name for s in stages] == [
         "problem.prefilter", "problem.entry_sizes", "problem.entry_weights",
         "problem.terms", "problem.bounds"]
-    assert all(s.parent is whole for s in stages)
     assert sum(s.ns for s in stages) <= whole.ns
+    # the doubly table's share of three of them, one span each inside
+    inner = [s for s in rec.spans if s.name.startswith("problem.")
+             and s.parent is not whole]
+    assert [(s.name, s.parent.name) for s in inner] == [
+        ("problem.doubly_sizes", "problem.entry_sizes"),
+        ("problem.doubly_weights", "problem.entry_weights"),
+        ("problem.doubly_terms", "problem.terms")]
+    assert all(s.ns <= s.parent.ns for s in inner)
 
 
 def test_solve_quant_stages_are_its_spans():
@@ -273,7 +280,7 @@ def test_solve_quant_stages_are_its_spans():
     np.testing.assert_array_equal(ex_on, ex_off)
     np.testing.assert_array_equal(cov_on, cov_off)
     assert info_on.keys() == info_off.keys()
-    for k in ("objective", "num_candidates", "fista_chunks", "bnb_nodes",
+    for k in ("objective", "candidates", "fista_chunks", "bnb_nodes",
               "stopped_by", "enum_rounds"):
         assert info_on[k] == info_off[k], k
     stage_s = info_on["stage_s"]

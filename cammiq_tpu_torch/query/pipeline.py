@@ -10,10 +10,11 @@ an artifact or a mesh.  The gather engine cannot overflow, so its passes
 never re-run.  Counts accumulate in views of one int32 tensor on the
 session's device; the pass ends in ONE blocking transfer, which
 also reads the overflow counts, and nothing inside the batch loop waits for
-the device: each batch is staged in a ring of two pinned host buffers and
-copied without blocking (``_Upload``), and ``classify_batch`` makes no
-host sync.  On overflow the whole read set re-runs with the capacity that
-overflowed widened, and the wider capacity sticks for later runs: ``maxm``
+the device: each batch is packed at 2 bits a base into a ring of two
+pinned host buffers, copied without blocking and unpacked on the device
+(``_Upload``), and ``classify_batch`` makes no host sync.  On overflow the
+whole read set re-runs with the capacity that overflowed widened, and the
+wider capacity sticks for later runs: ``maxm``
 doubles on slot overflow; on hit overflow ``frac`` halves, and from 1 goes
 to 0, the match list's full capacity, which cannot overflow
 (``cammiq_tpu/query/pipeline.py:159, 240-260``).
@@ -57,6 +58,7 @@ from ..config import QueryConfig
 from ..device import resolve_device
 from ..index.table import FlatIndex, _empty_flat_index
 from ..io.fastq import ReadSet
+from ..kernels import read_pack
 from ..parallel.dist_query import DistSortJoinSession
 from ..parallel.mesh import ProcessGrid
 from ..utils.timing import Timings, span, stage_timer
@@ -202,7 +204,9 @@ class QuerySession:
         """One pass over the reads; host dict of counts, or None after an
         overflow (the capacity that overflowed is then widened).  Its span
         ``query.pass`` holds each batch's ``pass.stage`` (the batch made
-        and copied into the upload ring), ``pass.upload_wait``,
+        and copied into the upload ring; on the card ``pass.pack``, the
+        packer, and ``pass.unpacked``, a batch that did not pack, in it),
+        ``pass.upload_wait``,
         ``pass.classify`` (the host's issue of the batch's device work)
         and ``pass.pair_lookup``, folded, and the end's ``pass.drain``."""
         with span("query.pass"):
@@ -353,7 +357,15 @@ class _Upload:
     in one of two pinned host buffers and copied with ``non_blocking``; a
     buffer is refilled only after its last copy (two batches back) is
     done, which its event tells: the host never waits for the stream
-    itself.  Elsewhere a plain copy."""
+    itself.  Elsewhere a plain copy.
+
+    On the card a batch goes up at 2 bits a base: ``pack_reads`` writes
+    its codes and lengths into the buffer (``kernels/read_pack.py``), one
+    copy takes it over, and ``unpack_reads`` restores the int8 codes and
+    int32 lengths on the stream.  A batch that holds a code outside 0..3
+    does not pack and goes up as it is, codes and lengths in two copies,
+    in the folded span ``pass.unpacked``; ``pass.pack`` folds the packer's
+    every call, so 1 - unpacked / pack is the share that went packed."""
 
     DEPTH = 2
 
@@ -368,20 +380,34 @@ class _Upload:
             with span("pass.stage", fold=True):
                 return (torch.from_numpy(codes).to(self.device).contiguous(),
                         torch.from_numpy(lengths).to(self.device))
+        B, Lp = codes.shape
+        nbytes = read_pack.layout(B, Lp)[2]
+        loff = (B * Lp + 15) // 16 * 16     # the unpacked lengths' offset
         if len(self.ring) < self.DEPTH:
-            self.ring.append((torch.empty(codes.shape, dtype=torch.int8,
-                                          pin_memory=True),
-                              torch.empty(lengths.shape, dtype=torch.int32,
-                                          pin_memory=True),
-                              torch.cuda.Event()))
-        hc, hl, done = self.ring[self.k % self.DEPTH]
+            self.ring.append([None, torch.cuda.Event()])
+        slot = self.ring[self.k % self.DEPTH]
         self.k += 1
+        # sized for the batch unpacked, which is never smaller than packed
+        if slot[0] is None or slot[0].numel() < loff + 4 * B:
+            slot[0] = torch.empty(loff + 4 * B, dtype=torch.uint8,
+                                  pin_memory=True)
+        hb, done = slot
         with span("pass.upload_wait", fold=True):
             done.synchronize()      # this buffer's copy of two batches back
         with span("pass.stage", fold=True):
-            hc.numpy()[...] = codes
-            hl.numpy()[...] = lengths
-            dc = hc.to(self.device, non_blocking=True)
-            dl = hl.to(self.device, non_blocking=True)
-            done.record(torch.cuda.current_stream(self.device))
-        return dc, dl
+            with span("pass.pack", fold=True):
+                packed = read_pack.pack_reads(codes, lengths, hb.numpy())
+            stream = torch.cuda.current_stream(self.device)
+            if packed:
+                db = hb[:nbytes].to(self.device, non_blocking=True)
+                done.record(stream)
+                return read_pack.unpack_reads(db, B, Lp)
+            with span("pass.unpacked", fold=True):
+                hc = hb[:B * Lp].view(torch.int8).view(B, Lp)
+                hl = hb[loff:loff + 4 * B].view(torch.int32)
+                hc.numpy()[...] = codes
+                hl.numpy()[...] = lengths
+                dc = hc.to(self.device, non_blocking=True)
+                dl = hl.to(self.device, non_blocking=True)
+                done.record(stream)
+            return dc, dl

@@ -8,7 +8,7 @@ C++ compiler with OpenMP.  It builds everything from this checkout, imports
 nothing of JAX or of the JAX package, and exits nonzero if any phase fails:
 
 1. header: the card's name and power limit, torch/CUDA/nvcc versions; the
-   ten CUDA kernels and the native host library are compiled (build
+   eleven CUDA kernels and the native host library are compiled (build
    seconds printed);
 2. set-up: the config-#3-shape index (the bench generator,
    tools/benchdata.py: 1000 genomes x 300 kb, k=26 L=100 Lmax=50 h=26),
@@ -28,7 +28,15 @@ nothing of JAX or of the JAX package, and exits nonzero if any phase fails:
    query use) at n = 2^20; median CUDA-event times of both beside the
    kernel's bound, and the kernel's device-only time (case_count's and
    match_assemble's launch geometry on lines of their own: lanes a read,
-   reads a block, blocks, registers, resident blocks an SM);
+   reads a block, blocks, registers, resident blocks an SM); then the
+   upload at 2 bits a base: the main path's first batch ([8192, 100]) and
+   the benchmark's (its first 65,536 reads) packed by the native packer
+   into a pinned buffer (byte-equal to pack_reads_plain) and unpack_reads
+   on the card against unpack_reads_plain on the same device buffer and
+   against the batch, exactly, beside its bound; the packer's host ms a
+   65,536-read batch beside the staging copy it replaced (the int8 copy
+   into a pinned buffer), on the batch and on its rows trimmed in place
+   from a [R, 256] read set;
 4. toy end to end through the CLI (5 x 2000 bp genomes, 4000 simulated
    reads, index built on cuda): quant abundances within 0.01 of the truth
    for all 5 genomes, a Type-I file identical to the one the CPU path
@@ -36,7 +44,7 @@ nothing of JAX or of the JAX package, and exits nonzero if any phase fails:
 5. main path at config-#3 scale: QuerySession.from_artifact on cuda over 16
    batches of 8192 reads, then build_problem + solve_quant; the kernels'
    launch counters are zeroed just before and read just after, and every
-   kernel must have launched; one batch must give identical counts through
+   kernel must have launched, unpack_reads (the session's upload) too; one batch must give identical counts through
    the kernels (cuda) and the plain versions (cpu), and one batch, in quant
    and in sc mode, must run under torch.cuda.set_sync_debug_mode("error")
    (no host sync); the host syncs of a whole pass of each mode are counted
@@ -184,6 +192,9 @@ BATCH = 8192
 N_BATCHES = 16
 SCAN_N = 1 << 20
 TOY_TOL = 0.01
+# the benchmark's batch of reads (perfbench's query cells)
+BENCH_BATCH = 65536
+HOST_ROUNDS = 20
 BUILD_CHECK_GENOMES = 64
 DIST_GENOMES = 8
 SLICE = 1 << 24
@@ -249,21 +260,30 @@ KERNEL_INFO = {
                          "cammiq_tpu/models/quant.py:523", "quant_scale"),
     "quant_fista@bnb": ("cammiq_tpu_torch/csrc/quant_fista.cu",
                         "cammiq_tpu/models/quant.py:412", "quant_scale"),
+    # no TPU kernel: the JAX session hands XLA its int8 batch as it is; the
+    # upload at 2 bits a base, at the main path's batch and the benchmark's
+    "unpack_reads": ("cammiq_tpu_torch/csrc/read_pack.cu",
+                     "cammiq_tpu/query/pipeline.py:362", "quant"),
+    f"unpack_reads@{BENCH_BATCH}": ("cammiq_tpu_torch/csrc/read_pack.cu",
+                                    "cammiq_tpu/query/pipeline.py:362", "quant"),
 }
 # the kernels each driven path must launch
 SORTJOIN_KERNELS = ("probe_bloom", "cuckoo_verify", "match_assemble", "case_count")
 GATHER_KERNELS = ("gather_probe", "case_count")
+# a QuerySession's pass on the card uploads each batch through unpack_reads;
+# the phases that call the kernels on device tensors of their own do not
+UPLOAD_KERNELS = ("unpack_reads",)
 PATH_KERNELS = {
-    "quant": SORTJOIN_KERNELS,
-    "typeII": SORTJOIN_KERNELS,
-    "grid": SORTJOIN_KERNELS,
+    "quant": SORTJOIN_KERNELS + UPLOAD_KERNELS,
+    "typeII": SORTJOIN_KERNELS + UPLOAD_KERNELS,
+    "grid": SORTJOIN_KERNELS + UPLOAD_KERNELS,
     "shards": SORTJOIN_KERNELS,
     "build": ("first_of_run", "segmented_min", "lcp_pairs", "occ_count"),
     "build_check": ("first_of_run", "segmented_min", "lcp_pairs", "occ_count"),
-    "gather": GATHER_KERNELS,
+    "gather": GATHER_KERNELS + UPLOAD_KERNELS,
     "gather_grid": GATHER_KERNELS,
     "gather_shards": GATHER_KERNELS,
-    "refcompat": SORTJOIN_KERNELS + ("gather_probe",),
+    "refcompat": SORTJOIN_KERNELS + ("gather_probe",) + UPLOAD_KERNELS,
     "quant_scale": ("quant_fista",),
 }
 # phase 15: benchmarks/realized_free.py's mixture on the config-#3 index,
@@ -375,6 +395,14 @@ def bound_match_assemble(mrow, me, counts, prec, O, B, maxm, eu) -> dict:
     at = me[:n].long() * 12
     sectors = torch.unique(torch.cat([at // 32, (at + 11) // 32])).numel()
     return bound(8 * n + 32 * sectors + 4 + 13 * B * maxm + 4)
+
+
+def bound_unpack_reads(B: int, Lp: int) -> dict:
+    """The packed batch read once; the int8 codes and int32 lengths
+    written."""
+    from cammiq_tpu_torch.kernels.read_pack import layout
+
+    return bound(layout(B, Lp)[2] + B * Lp + 4 * B)
 
 
 def bound_segmented_min(v, flags) -> dict:
@@ -543,7 +571,7 @@ def kernel_counters() -> dict:
     from cammiq_tpu_torch.kernels import (case_count, cuckoo_verify,
                                           first_of_run, gather_probe, lcp_pairs,
                                           match_assemble, occ_count, probe_bloom,
-                                          quant_fista, segmented_min)
+                                          quant_fista, read_pack, segmented_min)
 
     return {"first_of_run": first_of_run.KERNEL,
             "probe_bloom": probe_bloom.KERNEL,
@@ -553,7 +581,8 @@ def kernel_counters() -> dict:
             "lcp_pairs": lcp_pairs.KERNEL, "occ_count": occ_count.KERNEL,
             "gather_probe": gather_probe.KERNEL,
             "case_count": case_count.KERNEL,
-            "quant_fista": quant_fista.KERNEL}
+            "quant_fista": quant_fista.KERNEL,
+            "unpack_reads": read_pack.KERNEL}
 
 
 def zero_counts() -> None:
@@ -1085,6 +1114,49 @@ class Smoke:
         (ms, _, G), _ = captured["case_count"]
         self.case_count_vs_plain("case_count", ms, lengths, G,
                                  sess.dm.eu + sess.dm.ed)
+
+    # ---- 3. the upload at 2 bits a base: the packer and unpack_reads
+    def upload_vs_plain(self, reads):
+        import numpy as np
+        import torch
+
+        from cammiq_tpu_torch.kernels import read_pack as krp
+
+        for B in (BATCH, BENCH_BATCH):
+            codes, lengths = reads.codes[:B], reads.lengths[:B]
+            Lp = codes.shape[1]
+            hb = torch.empty(krp.layout(B, Lp)[2], dtype=torch.uint8,
+                             pin_memory=True)
+            if not krp.pack_reads(codes, lengths, hb.numpy()):
+                raise AssertionError(f"[{B}, {Lp}]: the batch did not pack")
+            if not np.array_equal(hb.numpy(), krp.pack_reads_plain(codes, lengths)):
+                raise AssertionError(f"[{B}, {Lp}]: packer != pack_reads_plain")
+            name = "unpack_reads" if B == BATCH else f"unpack_reads@{B}"
+            got = self.compare(name, krp.unpack_reads, krp.unpack_reads_plain,
+                               (hb.to(DEV), B, Lp), bound_unpack_reads(B, Lp))
+            if not (np.array_equal(got[0].cpu().numpy(), codes)
+                    and np.array_equal(got[1].cpu().numpy(), lengths)):
+                raise AssertionError(f"{name}: the codes or lengths differ "
+                                     "from the batch")
+        # the host: the packer against the staging copy it replaced
+        wide = np.zeros((B, 256), np.int8)
+        wide[:, :Lp] = codes
+        staged = torch.empty((B, Lp), dtype=torch.int8, pin_memory=True).numpy()
+        host = {}
+        for form, src in (("contiguous", codes), ("strided", wide[:, :Lp])):
+            times = {"pack": [], "copy": []}
+            for _ in range(HOST_ROUNDS):
+                t = time.perf_counter()
+                krp.pack_reads(src, lengths, hb.numpy())
+                times["pack"].append(time.perf_counter() - t)
+                t = time.perf_counter()
+                staged[...] = src
+                times["copy"].append(time.perf_counter() - t)
+            host[form] = {k: 1e3 * statistics.median(v) for k, v in times.items()}
+        self.results["upload_host_ms"] = host
+        log(f"the host a [{B}, {Lp}] batch, median of {HOST_ROUNDS} (ms): "
+            f"{host}; packed {krp.layout(B, Lp)[2]} B against {B * (Lp + 4)} B "
+            f"unpacked")
 
     # ---- 4. toy end to end through the CLI
     def toy_cli(self):
@@ -2623,6 +2695,8 @@ def main() -> int:
     if art_sess:
         art, sess = art_sess
         s.phase("kernels vs plain versions", s.kernels_vs_plain, sess, reads)
+    if reads:
+        s.phase("the upload at 2 bits a base vs plain", s.upload_vs_plain, reads)
     s.phase("toy end to end through the CLI", s.toy_cli)
     if art_sess:
         s.phase("main path at config-#3 scale", s.main_path, art, sess, reads)

@@ -26,6 +26,7 @@ from cammiq_tpu_torch.kernels import match_assemble as kma
 from cammiq_tpu_torch.kernels import occ_count as kocc
 from cammiq_tpu_torch.kernels import probe_bloom as kpb
 from cammiq_tpu_torch.kernels import quant_fista as kqf
+from cammiq_tpu_torch.kernels import read_pack as krp
 from cammiq_tpu_torch.kernels import segmented_min as ksm
 from cammiq_tpu_torch.io.fastq import ReadSet
 from cammiq_tpu_torch.models.quant import solve_quant
@@ -40,6 +41,7 @@ from cammiq_tpu_torch.query.probe import to_device_index
 import cammiq_tpu_torch.query.sortjoin as tsj
 from cammiq_tpu_torch.query.sortjoin import (TorchMergedIndex, classify_batch,
                                              collect_matches)
+from cammiq_tpu_torch.utils.timing import take, tracing
 from torch_fixture import (ALPHA, CASE_BRANCHES, MATCH_CASES,
                            QUANT_BEYOND_CAP, QUANT_CONSTRAINED,
                            QUANT_UNCONSTRAINED, by_entry_key, case_rows,
@@ -567,6 +569,123 @@ def test_session_sc_mode_cuda_matches_cpu(cuda_device, dist_index):
         np.testing.assert_array_equal(getattr(runs[1], f), getattr(runs[0], f))
     assert (runs[1].nundet, runs[1].nconf) == (runs[0].nundet, runs[0].nconf)
     assert runs[1].pair_counts == runs[0].pair_counts
+
+
+# ---- the read upload at 2 bits a base (kernels/read_pack.py)
+
+
+@pytest.mark.parametrize("loop", ["native", "scalar"])
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("Lp", [1, 3, 4, 33, 99, 100, 101, 255])
+def test_pack_reads_native_matches_plain(cuda_device, Lp, strided, loop):
+    """The native packer (AVX2 where the host has it, a scalar tail past
+    the last 32 bases; or its scalar loop alone) byte-equal to the numpy
+    twin, rows read in place from a [R, 256] read set or contiguous,
+    writing nothing past the batch; a -1 code and a length past uint16 are
+    reported."""
+    pack = krp.pack_reads if loop == "native" else krp.pack_reads_scalar
+    rng = np.random.default_rng(Lp)
+    B = 65536 if Lp == 100 else 4097
+    full = rng.integers(0, 4, (B, 256)).astype(np.int8)
+    codes = full[:, :Lp] if strided else np.ascontiguousarray(full[:, :Lp])
+    lengths = rng.integers(0, Lp + 1, B).astype(np.int32)
+    want = krp.pack_reads_plain(codes, lengths)
+    out = np.full(want.size + 16, 0xAB, np.uint8)
+    assert pack(codes, lengths, out)
+    np.testing.assert_array_equal(out[:want.size], want)
+    assert (out[want.size:] == 0xAB).all()
+    bad = codes.copy()
+    bad[B // 2, Lp - 1] = -1
+    assert not pack(bad, lengths, out)
+    wide = lengths.copy()
+    wide[-1] = 1 << 16
+    assert not pack(codes, wide, out)
+
+
+@pytest.mark.parametrize("B,Lp", [(1, 1), (7, 3), (4097, 4), (300, 33),
+                                  (65536, 100), (1000, 101), (50, 255), (10, 0)])
+def test_unpack_reads_kernel_matches_plain(cuda_device, B, Lp):
+    """One launch, no host sync (sync debug mode "error"), equal to the
+    plain version on the same device buffer and to the source batch."""
+    rng = np.random.default_rng(B + Lp)
+    codes = rng.integers(0, 4, (B, Lp)).astype(np.int8)
+    lengths = rng.integers(0, Lp + 1, B).astype(np.int32)
+    buf = torch.from_numpy(krp.pack_reads_plain(codes, lengths)).to(cuda_device)
+    before = krp.KERNEL.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = krp.unpack_reads(buf, B, Lp)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert krp.KERNEL.launches == before + 1
+    want = krp.unpack_reads_plain(buf, B, Lp)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    np.testing.assert_array_equal(got[0].cpu().numpy(), codes)
+    np.testing.assert_array_equal(got[1].cpu().numpy(), lengths)
+
+
+def _wide_reads(rs, planted: bool) -> ReadSet:
+    """``rs`` in a [R, 256] read set, as ``read_fastq`` pads it, so the
+    session trims it to a strided view; ``planted`` puts a -1 code (an N,
+    as the JAX package's tests plant it) into read 70."""
+    codes = np.zeros((rs.num_reads, 256), np.int8)
+    codes[:, :rs.codes.shape[1]] = rs.codes
+    if planted:
+        codes[70, 5] = -1
+    return ReadSet(codes=codes, lengths=rs.lengths, total_len=rs.total_len,
+                   name="wide")
+
+
+@pytest.mark.parametrize("planted", [False, True])
+@pytest.mark.parametrize("engine,sc_mode", [("sortjoin", False),
+                                            ("sortjoin", True),
+                                            ("gather", False)])
+def test_session_packed_upload_matches_cpu(cuda_device, dist_index, engine,
+                                           sc_mode, planted):
+    """The card's session, its batches packed (or, with a -1 code, one
+    batch unpacked), counts as the CPU's: the sort join, sc mode and the
+    gather engine."""
+    art, _, rs, G = dist_index
+    reads = _wide_reads(rs, planted)
+    cfg = QueryConfig(h=art.unique_index.h, batch_size=64)
+    got, want = (QuerySession(art.unique_index, art.doubly_index, G, cfg,
+                              device=d, engine=engine).run(reads, sc_mode=sc_mode)
+                 for d in (cuda_device, "cpu"))
+    _assert_query_counts_equal(got, want)
+
+
+@pytest.mark.parametrize("planted", ["none", "one", "every"])
+def test_session_pass_pack_counts_packed_batches(cuda_device, dist_index,
+                                                 planted):
+    """``pass.pack`` folds once a batch, ``pass.unpacked`` once for each
+    batch that did not pack: none of the four, the one that holds a -1
+    code, or all four where each does."""
+    art, _, rs, G = dist_index
+    codes = rs.codes.copy()
+    if planted == "one":
+        codes[130, 7] = -1
+    elif planted == "every":
+        codes[::64, 0] = -1
+    reads = ReadSet(codes=codes, lengths=rs.lengths, total_len=rs.total_len,
+                    name="planted")
+    cfg = QueryConfig(h=art.unique_index.h, batch_size=64)
+    want = QuerySession(art.unique_index, art.doubly_index, G, cfg,
+                        device="cpu").run(reads)
+    sess = QuerySession(art.unique_index, art.doubly_index, G, cfg,
+                        device=cuda_device)
+    sess.run(reads)                 # settles maxm and frac: one pass below
+    take()
+    with tracing():
+        got = sess.run(reads)
+    tot = take().totals()
+    _assert_query_counts_equal(got, want)
+    nb = 4
+    assert tot["query.pass"][0] == 1 and tot["pass.stage"][0] == 2 * nb + 1
+    unpacked = {"none": 0, "one": 1, "every": nb}[planted]
+    assert tot["pass.pack"][0] == nb
+    assert tot.get("pass.unpacked", [0])[0] == unpacked
 
 
 @pytest.fixture(scope="module")

@@ -9,10 +9,10 @@
 // (unassigned and repeated ones aimed at a dump element).  No sort here:
 //
 //   in:  slots, rid1, rid2 int32 [B, S] (slot = global entry id, BIG =
-//        empty), lengths int32 [B], G, sc_mode, and up to two rcount
-//        targets (out, lo): out[e] counts entry id lo + e, e < size;
+//        empty), lengths int32 [B], G, sc_mode, and an optional rcount
+//        int32 [size]: rcount[e] counts entry id e, e < size;
 //   out: counts int32 [2G + 2] added to (cnts_u | cnts_d | nundet |
-//        nconf), pair_lo / pair_hi int32 [B], the rcount targets added to.
+//        nconf), pair_lo / pair_hi int32 [B], rcount added to.
 //
 // Group path (S <= kGroupMaxS, every main-path width): a group of g lanes
 // owns a read, g the smallest power of two >= min(S, 32), at least 8; a
@@ -78,15 +78,6 @@ constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr long long kKeyMax = 0x7FFFFFFFFFFFFFFFLL;
 constexpr long long kKeyMin = -kKeyMax - 1;
 
-struct Target {
-  int32_t* out;  // null: no target
-  long long lo, size;
-};
-
-struct Targets {
-  Target t[2];
-};
-
 // (lo, hi) as one int64 that orders as JAX's two-key sort of int32 does
 __device__ __forceinline__ long long pair_key(int lo, int hi) {
   return (long long)lo * 4294967296LL + (long long)((unsigned)hi ^ 0x80000000u);
@@ -143,12 +134,9 @@ __device__ __forceinline__ void add_count(int32_t* cnt, int idx, int G) {
   if (idx >= 0 && idx < G) atomicAdd(cnt + idx, 1);
 }
 
-__device__ __forceinline__ void add_targets(const Targets& tg, int s) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const long long d = (long long)s - tg.t[i].lo;
-    if (tg.t[i].out && d >= 0 && d < tg.t[i].size) atomicAdd(tg.t[i].out + d, 1);
-  }
+// +1 at entry id s of a non-null rcount of `size` elements
+__device__ __forceinline__ void add_rcount(int32_t* rcount, long long size, int s) {
+  if (s >= 0 && s < size) atomicAdd(rcount + s, 1);
 }
 
 // A read's flags from its reduction, then (decide) JAX's case table.
@@ -212,7 +200,7 @@ case_count_groups(const int32_t* __restrict__ slots,
                   const int32_t* __restrict__ lengths, int B, int S, int G,
                   int sc_mode, int32_t* __restrict__ counts,
                   int32_t* __restrict__ pair_lo, int32_t* __restrict__ pair_hi,
-                  Targets tg) {
+                  int32_t* __restrict__ rcount, long long rc_size) {
   constexpr int R = kGroupThreads / LANES;  // reads a block
   constexpr int CAP = LANES < 32 ? LANES : kGroupStage;
   constexpr int EPL = CAP / LANES;  // stage entries a lane
@@ -346,8 +334,8 @@ case_count_groups(const int32_t* __restrict__ slots,
       undet_real = c.undet && real;
       conf_real = !c.undet && !c.assigned && real;
     }
-    // 5. the assigned read's distinct slots into the rcount targets
-    if (c.assigned && (tg.t[0].out || tg.t[1].out)) {
+    // 5. the assigned read's distinct slots into rcount
+    if (c.assigned && rcount) {
       if (staged) {
 #pragma unroll
         for (int t = 0; t < EPL; ++t) {
@@ -356,7 +344,7 @@ case_count_groups(const int32_t* __restrict__ slots,
             const int v = gs[e];
             bool fresh = true;
             for (int q = 0; q < e && fresh; ++q) fresh = gs[q] != v;
-            if (fresh) add_targets(tg, v);
+            if (fresh) add_rcount(rcount, rc_size, v);
           }
         }
       } else {
@@ -365,7 +353,7 @@ case_count_groups(const int32_t* __restrict__ slots,
           if (v >= kBig) continue;
           bool fresh = true;
           for (int q = 0; q < j && fresh; ++q) fresh = slots[row + q] != v;
-          if (fresh) add_targets(tg, v);
+          if (fresh) add_rcount(rcount, rc_size, v);
         }
       }
     }
@@ -426,7 +414,7 @@ case_count_block(const int32_t* __restrict__ slots,
                  const int32_t* __restrict__ lengths, int S, int cap, int G,
                  int sc_mode, int32_t* __restrict__ counts,
                  int32_t* __restrict__ pair_lo, int32_t* __restrict__ pair_hi,
-                 Targets tg) {
+                 int32_t* __restrict__ rcount, long long rc_size) {
   extern __shared__ __align__(16) int smem[];
   int* st_slot = smem;
   int* st_r1 = smem + cap;
@@ -505,8 +493,8 @@ case_count_block(const int32_t* __restrict__ slots,
     if (!c.undet && !c.assigned && real) atomicAdd(counts + 2 * G + 1, 1);
   }
 
-  // the assigned read's distinct slots into the rcount targets
-  if (!c.assigned || !(tg.t[0].out || tg.t[1].out)) return;
+  // the assigned read's distinct slots into rcount
+  if (!c.assigned || !rcount) return;
   if (staged) {
     int n2 = 1;
     while (n2 < n) n2 <<= 1;
@@ -515,7 +503,7 @@ case_count_block(const int32_t* __restrict__ slots,
     bitonic_sort(st_slot, n2);
     for (int k = tid; k < n; k += T) {
       const int s = st_slot[k];
-      if (k == 0 || st_slot[k - 1] != s) add_targets(tg, s);
+      if (k == 0 || st_slot[k - 1] != s) add_rcount(rcount, rc_size, s);
     }
   } else {
     for (int j = tid; j < S; j += T) {
@@ -523,7 +511,7 @@ case_count_block(const int32_t* __restrict__ slots,
       if (s >= kBig) continue;
       bool first = true;
       for (int k = 0; k < j && first; ++k) first = slots[row + k] != s;
-      if (first) add_targets(tg, s);
+      if (first) add_rcount(rcount, rc_size, s);
     }
   }
 }
@@ -532,7 +520,7 @@ case_count_block(const int32_t* __restrict__ slots,
 
 using GroupKernel = void (*)(const int32_t*, const int32_t*, const int32_t*,
                              const int32_t*, int, int, int, int, int32_t*,
-                             int32_t*, int32_t*, Targets);
+                             int32_t*, int32_t*, int32_t*, long long);
 
 struct Geometry {
   GroupKernel fn;  // null: the block path
@@ -591,25 +579,21 @@ void block_shape(int S, int* cap, int* threads) {
 }  // namespace
 
 // slots, rid1, rid2 int32 [B, S], lengths int32 [B]; counts int32 [2G + 2]
-// (added to), pair_lo / pair_hi int32 [B]; rcount targets rc0 / rc1 (null
-// for none) of size0 / size1 elements counting ids from lo0 / lo1.
+// (added to), pair_lo / pair_hi int32 [B]; rcount int32 [rc_size] (null
+// for none) counting entry ids from 0.
 extern "C" int cammiq_case_count(const void* slots, const void* rid1,
                                  const void* rid2, const void* lengths, int B,
                                  int S, int G, int sc_mode, void* counts,
-                                 void* pair_lo, void* pair_hi, void* rc0,
-                                 long long lo0, long long size0, void* rc1,
-                                 long long lo1, long long size1, void* stream) {
+                                 void* pair_lo, void* pair_hi, void* rcount,
+                                 long long rc_size, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
-  Targets tg;
-  tg.t[0] = Target{(int32_t*)rc0, lo0, size0};
-  tg.t[1] = Target{(int32_t*)rc1, lo1, size1};
   const Geometry geo = geometry(S, slots);
   if (geo.fn) {
     const int R = kGroupThreads / geo.lanes;
     geo.fn<<<(B + R - 1) / R, kGroupThreads, 0, (cudaStream_t)stream>>>(
         (const int32_t*)slots, (const int32_t*)rid1, (const int32_t*)rid2,
         (const int32_t*)lengths, B, S, G, sc_mode, (int32_t*)counts,
-        (int32_t*)pair_lo, (int32_t*)pair_hi, tg);
+        (int32_t*)pair_lo, (int32_t*)pair_hi, (int32_t*)rcount, rc_size);
     return (int)cudaGetLastError();
   }
   int cap, threads;
@@ -623,19 +607,18 @@ extern "C" int cammiq_case_count(const void* slots, const void* rid1,
   case_count_block<<<B, threads, smem, (cudaStream_t)stream>>>(
       (const int32_t*)slots, (const int32_t*)rid1, (const int32_t*)rid2,
       (const int32_t*)lengths, S, cap, G, sc_mode, (int32_t*)counts,
-      (int32_t*)pair_lo, (int32_t*)pair_hi, tg);
+      (int32_t*)pair_lo, (int32_t*)pair_hi, (int32_t*)rcount, rc_size);
   return (int)cudaGetLastError();
 }
 
-// cammiq_case_count with its 18 arguments packed as int64 in that order
+// cammiq_case_count with its 14 arguments packed as int64 in that order
 // (pointers as addresses, null as 0): the caller converts one argument,
-// not 18.
+// not 14.
 extern "C" int cammiq_case_count_packed(const long long* a) {
   return cammiq_case_count((const void*)a[0], (const void*)a[1], (const void*)a[2],
                            (const void*)a[3], (int)a[4], (int)a[5], (int)a[6],
                            (int)a[7], (void*)a[8], (void*)a[9], (void*)a[10],
-                           (void*)a[11], a[12], a[13], (void*)a[14], a[15], a[16],
-                           (void*)a[17]);
+                           (void*)a[11], a[12], (void*)a[13]);
 }
 
 // The launch of cammiq_case_count for [B, S] rows at `slots`, into out[10]:

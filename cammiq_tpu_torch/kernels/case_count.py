@@ -27,22 +27,20 @@ from __future__ import annotations
 
 import ctypes
 import struct
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple
 
 import torch
 
 from .build import I32, VP, CudaKernel, check_tensor, load, stream_ptr
 from .gather_probe import BIG
 
-# the launcher's 18 arguments travel packed as int64 in one buffer:
-# ctypes converts one argument instead of 18, a few microseconds a call
+# the launcher's 14 arguments travel packed as int64 in one buffer:
+# ctypes converts one argument instead of 14, a few microseconds a call
 KERNEL = CudaKernel("cammiq_case_count_packed", [ctypes.c_char_p])
-_pack = struct.Struct("<18q").pack
+_pack = struct.Struct("<14q").pack
 GEOMETRY_FIELDS = ("group_path", "lanes", "reads_per_block", "blocks",
                    "threads", "registers", "resident_blocks_per_sm",
                    "slots_per_load", "loads_per_lane", "shared_bytes")
-# rcount targets: (int32 [size] view, lo): view[e] counts entry id lo + e
-Targets = Sequence[Tuple[torch.Tensor, int]]
 
 
 class CaseResult(NamedTuple):
@@ -171,34 +169,34 @@ def _views(counts: torch.Tensor, G: int, pair_lo, pair_hi) -> CaseCounts:
 
 
 def case_count_plain(ms, lengths: torch.Tensor, num_genome_slots: int,
-                     sc_mode: bool = False, rcounts: Targets = (),
+                     sc_mode: bool = False, rcount: torch.Tensor | None = None,
                      counts: torch.Tensor | None = None) -> CaseCounts:
     """``case_analysis``, its counts added to ``counts`` (int32 [2G + 2],
-    zeros when None), and ``rcounts_from_case`` added to each rcount
-    target; on any device."""
+    zeros when None), and ``rcounts_from_case`` over ``[0,
+    rcount.numel())`` added to ``rcount`` when given; on any device."""
     G = num_genome_slots
     case = case_analysis(ms, lengths, G, sc_mode=sc_mode)
     if counts is None:
         counts = torch.zeros(2 * G + 2, dtype=torch.int32, device=lengths.device)
     counts += torch.cat([case.cnts_u, case.cnts_d, case.nundet[None],
                          case.nconf[None]])
-    for out, lo in rcounts:
-        out += rcounts_from_case(case, lo, out.shape[0])
+    if rcount is not None:
+        rcount += rcounts_from_case(case, 0, rcount.numel())
     return _views(counts, G, case.pair_lo, case.pair_hi)
 
 
 def case_count(ms, lengths: torch.Tensor, num_genome_slots: int,
-               sc_mode: bool = False, rcounts: Targets = (),
+               sc_mode: bool = False, rcount: torch.Tensor | None = None,
                counts: torch.Tensor | None = None) -> CaseCounts:
     """int32 [B, S] ``ms.slots``/``rid1``/``rid2``, int32 lengths [B] ->
     the batch's ``CaseCounts``, its counts added to ``counts`` (int32
-    [2G + 2], zeros when None); each rcount target ``(view, lo)``, at most
-    two, gets +1 at ``slot - lo`` for each distinct slot in ``[lo, lo +
-    view.numel())`` of each assigned read, in place."""
+    [2G + 2], zeros when None); ``rcount`` (int32 [E], when given) gets
+    +1 at each distinct slot id in ``[0, E)`` of each assigned read, in
+    place."""
     slots, rid1, rid2 = ms.slots, ms.rid1, ms.rid2
     if slots.device.type == "cpu":
         return case_count_plain(ms, lengths, num_genome_slots, sc_mode,
-                                rcounts, counts)
+                                rcount, counts)
     dev = slots.device
     if dev.type != "cuda":
         raise ValueError(f"case_count: unsupported device {dev}")
@@ -211,13 +209,10 @@ def case_count(ms, lengths: torch.Tensor, num_genome_slots: int,
         raise ValueError(f"case_count: rid1 {tuple(rid1.shape)}, rid2 "
                          f"{tuple(rid2.shape)}, lengths {tuple(lengths.shape)} "
                          f"for slots {(B, S)}")
-    if len(rcounts) > 2:
-        raise ValueError(f"case_count: {len(rcounts)} rcount targets, at most 2")
-    targets = []
-    for out, lo in rcounts:
-        check_tensor(out, "rcount", torch.int32, dev, 1)
-        targets += [out.data_ptr(), int(lo), out.shape[0]]
-    targets += [0, 0, 0] * (2 - len(rcounts))
+    rc_ptr = rc_size = 0
+    if rcount is not None:
+        check_tensor(rcount, "rcount", torch.int32, dev, 1)
+        rc_ptr, rc_size = rcount.data_ptr(), rcount.shape[0]
     if counts is None:
         counts = torch.zeros(2 * G + 2, dtype=torch.int32, device=dev)
     check_tensor(counts, "counts", torch.int32, dev, 1)
@@ -227,7 +222,7 @@ def case_count(ms, lengths: torch.Tensor, num_genome_slots: int,
     p = pairs.data_ptr()
     KERNEL(_pack(slots.data_ptr(), rid1.data_ptr(), rid2.data_ptr(),
                  lengths.data_ptr(), B, S, G, int(sc_mode), counts.data_ptr(), p,
-                 p + 4 * B, *targets, stream_ptr(dev)))
+                 p + 4 * B, rc_ptr, rc_size, stream_ptr(dev)))
     return _views(counts, G, pairs[0], pairs[1])
 
 
@@ -252,7 +247,7 @@ def case_count_geometry(slots: torch.Tensor) -> dict:
 
 
 def case_count_traffic(ms, lengths: torch.Tensor, num_genome_slots: int,
-                       rcounts: Targets = ()) -> dict:
+                       rcount: torch.Tensor | None = None) -> dict:
     """What one call must move and compute, for its bound, from this
     batch's data: the slot ids read once (4 bytes a slot); of ``rid1`` and
     ``rid2`` only the 32-byte sectors that hold a valid slot's (a result
@@ -268,8 +263,8 @@ def case_count_traffic(ms, lengths: torch.Tensor, num_genome_slots: int,
     sectors = int(torch.unique(torch.nonzero(valid)[:, 0] // 8).numel())
     case = case_analysis(ms, lengths, G)
     rslots = case.sslots[case.dslot & case.assigned[:, None]].to(torch.int64)
-    touched = sum(int(torch.unique(rslots[(rslots >= lo) & (rslots < lo + out.shape[0])])
-                      .numel()) for out, lo in rcounts)
+    touched = (0 if rcount is None else int(torch.unique(
+        rslots[(rslots >= 0) & (rslots < rcount.numel())]).numel()))
     nbytes = (4 * B * S + 2 * 32 * sectors + 4 * B + 4 * (2 * G + 2) + 8 * B
               + 8 * touched)
     return {"bytes": nbytes, "ops": 2 * B * S + 10 * nvalid, "valid": nvalid,

@@ -9,10 +9,10 @@ the read's reverse complement, against the unique and the doubly
 
     [unique fwd | unique rc | doubly fwd | doubly rc]
 
-slot = entry + base (``u_base``, ``d_base``) or BIG, rid1/rid2 of the
-entry or 0, and ``in_u`` True for the unique table's hits.  ``d_base``
-defaults to ``u_base`` + the unique table's device length (1 for an empty
-table: its dummy entry).
+slot = the entry's global id or BIG, rid1/rid2 of the entry or 0, and
+``in_u`` True for the unique table's hits.  Unique entries take ids [0,
+Eu) and doubly entries [Eu, Eu + Ed), Eu and Ed the tables' device
+lengths (Eu is 1 for an empty unique table: its dummy entry).
 
 Kernel: ``csrc/gather_probe.cu`` (see the source note), one launch for the
 four outputs, no host sync.  A CPU tensor takes the plain version; a CUDA
@@ -38,13 +38,8 @@ KERNEL = CudaKernel("cammiq_gather_probe",
 MAX_LP = 24_000
 
 
-def _bases(didx_u: DeviceIndex, u_base: int, d_base: int | None):
-    return u_base, (u_base + didx_u.length.shape[0] if d_base is None else d_base)
-
-
 def gather_probe_plain(didx_u: DeviceIndex, didx_d: DeviceIndex,
-                       codes: torch.Tensor, lengths: torch.Tensor,
-                       u_base: int = 0, d_base: int | None = None):
+                       codes: torch.Tensor, lengths: torch.Tensor):
     """(slots, rid1, rid2 int32 [B, 4O], in_u bool [B, 4O]), op for op
     ``collect_matches`` of the JAX package, on any device."""
     B, Lp = codes.shape
@@ -52,7 +47,6 @@ def gather_probe_plain(didx_u: DeviceIndex, didx_d: DeviceIndex,
     dev = codes.device
     offsets = torch.arange(O, device=dev)
     Eu, Ed = didx_u.length.shape[0], didx_d.length.shape[0]
-    u_base, d_base = _bases(didx_u, u_base, d_base)
     eids = []
     for strand in (codes, revcomp_batch(codes, lengths)):
         p16 = pack_rolling16(strand)
@@ -62,8 +56,8 @@ def gather_probe_plain(didx_u: DeviceIndex, didx_d: DeviceIndex,
     m_d = torch.cat([eids[1], eids[3]], 1)
     hit_u, hit_d = m_u >= 0, m_d >= 0
     lu, ld = m_u.clamp(0, Eu - 1), m_d.clamp(0, Ed - 1)
-    slots = torch.cat([torch.where(hit_u, m_u + u_base, BIG),
-                       torch.where(hit_d, m_d + d_base, BIG)], 1)
+    slots = torch.cat([torch.where(hit_u, m_u, BIG),
+                       torch.where(hit_d, m_d + Eu, BIG)], 1)
     rid1 = torch.cat([torch.where(hit_u, didx_u.rid1[lu], 0),
                       torch.where(hit_d, didx_d.rid1[ld], 0)], 1)
     rid2 = torch.cat([torch.where(hit_u, didx_u.rid2[lu], 0),
@@ -91,12 +85,11 @@ def _table_args(d: DeviceIndex, base: int, dev) -> list:
 
 
 def gather_probe(didx_u: DeviceIndex, didx_d: DeviceIndex, codes: torch.Tensor,
-                 lengths: torch.Tensor, u_base: int = 0,
-                 d_base: int | None = None):
+                 lengths: torch.Tensor):
     """int8 codes [B, Lp], int32 lengths [B] -> (slots, rid1, rid2 int32
     [B, 4O], in_u bool [B, 4O]), N = B * 4O < 2^31."""
     if codes.device.type == "cpu":
-        return gather_probe_plain(didx_u, didx_d, codes, lengths, u_base, d_base)
+        return gather_probe_plain(didx_u, didx_d, codes, lengths)
     dev = codes.device
     if dev.type != "cuda":
         raise ValueError(f"gather_probe: unsupported device {dev}")
@@ -112,8 +105,8 @@ def gather_probe(didx_u: DeviceIndex, didx_d: DeviceIndex, codes: torch.Tensor,
     if B * S >= 2**31 or Lp > MAX_LP:
         raise ValueError(f"gather_probe: {B} x {Lp} codes exceed the kernel's "
                          f"int32 slots or its {MAX_LP}-base reads")
-    u_base, d_base = _bases(didx_u, u_base, d_base)
-    targs = _table_args(didx_u, u_base, dev) + _table_args(didx_d, d_base, dev)
+    targs = (_table_args(didx_u, 0, dev)
+             + _table_args(didx_d, didx_u.length.shape[0], dev))
     slots = torch.empty(B, S, dtype=torch.int32, device=dev)
     rid1 = torch.empty(B, S, dtype=torch.int32, device=dev)
     rid2 = torch.empty(B, S, dtype=torch.int32, device=dev)

@@ -52,15 +52,12 @@ class BatchCounts(NamedTuple):
 
 
 def collect_matches(didx_u: DeviceIndex, didx_d: DeviceIndex,
-                    codes: torch.Tensor, lengths: torch.Tensor,
-                    u_base: int = 0, d_base: int | None = None) -> MatchSlots:
+                    codes: torch.Tensor, lengths: torch.Tensor) -> MatchSlots:
     """Probe both tables on both strands.  Global entry ids: unique entries
-    map to [u_base, u_base + Eu), doubly to [d_base, d_base + Ed), Eu and
-    Ed the tables' device lengths; d_base defaults to u_base + Eu.  S = 4 *
-    max(Lp - h + 1, 1) columns: [unique fwd | unique rc | doubly fwd |
-    doubly rc]."""
-    return MatchSlots(*gather_probe(didx_u, didx_d, codes, lengths, u_base,
-                                    d_base))
+    map to [0, Eu), doubly to [Eu, Eu + Ed), Eu and Ed the tables' device
+    lengths (JAX's single-device layout).  S = 4 * max(Lp - h + 1, 1)
+    columns: [unique fwd | unique rc | doubly fwd | doubly rc]."""
+    return MatchSlots(*gather_probe(didx_u, didx_d, codes, lengths))
 
 
 def classify_batch(didx_u: DeviceIndex, didx_d: DeviceIndex,
@@ -76,7 +73,6 @@ def classify_batch(didx_u: DeviceIndex, didx_d: DeviceIndex,
     nconf), when given, is the counts' pass accumulator, added in place."""
     ms = collect_matches(didx_u, didx_d, codes, lengths)
     cc = case_count(ms, lengths, num_genome_slots, sc_mode=sc_mode,
-                    rcounts=() if rcount is None else ((rcount, 0),),
-                    counts=counts)
+                    rcount=rcount, counts=counts)
     return BatchCounts(cc.cnts_u, cc.cnts_d, cc.nundet, cc.nconf, None, None,
                        cc.pair_lo, cc.pair_hi)

@@ -195,8 +195,7 @@ def classify_batch(dm: TorchMergedIndex, codes: torch.Tensor,
     are added to in place, and the returned counts are its views."""
     mt = collect_matches(dm, codes, lengths, maxm, frac)
     cc = case_count(mt.slots, lengths, num_genome_slots, sc_mode=sc_mode,
-                    rcounts=() if rcount is None else ((rcount, 0),),
-                    counts=counts)
+                    rcount=rcount, counts=counts)
     return BatchCounts(cc.cnts_u, cc.cnts_d, cc.nundet, cc.nconf,
                        mt.overflow_slots, mt.overflow_hits, cc.pair_lo,
                        cc.pair_hi)

@@ -33,10 +33,7 @@ nothing of JAX or of the JAX package, and exits nonzero if any phase fails:
    the benchmark's (its first 65,536 reads) packed by the native packer
    into a pinned buffer (byte-equal to pack_reads_plain) and unpack_reads
    on the card against unpack_reads_plain on the same device buffer and
-   against the batch, exactly, beside its bound; the packer's host ms a
-   65,536-read batch beside the staging copy it replaced (the int8 copy
-   into a pinned buffer), on the batch and on its rows trimmed in place
-   from a [R, 256] read set;
+   against the batch, exactly, beside its bound;
 4. toy end to end through the CLI (5 x 2000 bp genomes, 4000 simulated
    reads, index built on cuda): quant abundances within 0.01 of the truth
    for all 5 genomes, a Type-I file identical to the one the CPU path
@@ -44,28 +41,23 @@ nothing of JAX or of the JAX package, and exits nonzero if any phase fails:
 5. main path at config-#3 scale: QuerySession.from_artifact on cuda over 16
    batches of 8192 reads, then build_problem + solve_quant; the kernels'
    launch counters are zeroed just before and read just after, and every
-   kernel must have launched, unpack_reads (the session's upload) too; one batch must give identical counts through
-   the kernels (cuda) and the plain versions (cpu), and one batch, in quant
-   and in sc mode, must run under torch.cuda.set_sync_debug_mode("error")
-   (no host sync); the host syncs of a whole pass of each mode are counted
-   in "warn" mode and printed.  Steady-state reads/s, session start and peak device
-   memory are printed;
+   kernel must have launched, unpack_reads (the session's upload) too; a
+   second pass must give the first's counts; one batch must give identical
+   counts through the kernels (cuda) and the plain versions (cpu), and one
+   batch, in quant and in sc mode, must run under
+   torch.cuda.set_sync_debug_mode("error") (no host sync); the host syncs
+   of a whole pass of each mode are counted in "warn" mode and printed.
+   Peak device memory is printed;
 6. Type-II at config-#3 scale: the same reads in sc mode (launch counters
    zeroed before, read after); cnts_u/cnts_d/nundet/nconf must equal the
-   quant pass, the pair counts go to solve_ident, steady-state sc and quant
-   passes are timed in turns, and one batch's outputs, pair outputs
-   included, must be identical through the kernels (cuda) and the plain
-   versions (cpu);
-7. profile: one more quant pass under torch.profiler, device time by
-   kernel, the device operations a batch and the device's busy share of
-   the pass's wall time (the table also goes to chip_smoke_profile.txt
-   in the output directory);
+   quant pass, a second sc pass its pair counts, the pair counts go to
+   solve_ident, and one batch's outputs, pair outputs included, must be
+   identical through the kernels (cuda) and the plain versions (cpu);
 8. distributed query (parallel/): (a) a world of one rank over NCCL
    (TCPStore on 127.0.0.1) and its 1 x 1 ProcessGrid;
    QuerySession.from_artifact(grid=...) builds its shard (the whole index)
    and must give the single session's quant and sc counts, make no host
    sync in a quant or sc batch (sync debug mode "error") and one in a pass;
-   quant passes of the single and the grid session timed in turns;
    (b) two model shards of the config-#3 artifact on the one card (their
    build timed, their geometry printed), the 16 batches probed through the
    kernels against both, the slots concatenated as a row's all_gather
@@ -84,12 +76,7 @@ nothing of JAX or of the JAX package, and exits nonzero if any phase fails:
    against its plain version on the same CUDA tensors at one batch's
    shapes, beside its bound and the mean table rows a probe walks in each
    table (to its hit or its first empty row), and case_count against its
-   plain version on the batch's [8192, 300] slots; quant passes of the two
-   engines in turns (reads/s of each), then one gather pass under the
-   profiler (device operations a batch, busy share); DistQuerySession on a world of one NCCL rank and two
-   FlatIndex shards on the one card, their slots concatenated: every count
-   equal to the single-device gather's, and case_count against its plain
-   version at the twin's concatenated [8192, 600];
+   plain version on the batch's [8192, 300] slots;
 10. toy Type-II through the CLI: 5 genomes x 2000 bp with a 300 bp segment
    planted in each pair of neighbours, indexed by `--build --device cuda`
    and by `--build --device cpu` (files must be equal), then a Type-II file
@@ -156,8 +143,9 @@ nothing of JAX or of the JAX package, and exits nonzero if any phase fails:
    end within MIX_PLAIN_LIMIT_S, else at the chunk level only.
 
 Every kernel time is printed beside its bound and its device-only time
-(CUDA events around calls queued behind a sleep kernel, so they run back
-to back on the device without the host's launch cost).  The bound is the least time the card could take
+(device_ms: CUDA events around calls queued behind a sleep kernel, so
+they run back to back on the device without the host's launch cost).
+Whole passes are not timed: perfbench/run.py's cells measure them.  The bound is the least time the card could take
 for the call, the larger of its bytes (each input read once,
 each output written once, counting what this call's data needs) over
 HBM_BYTES_PER_S and its operations over SCALAR_OPS_PER_S.
@@ -194,7 +182,6 @@ SCAN_N = 1 << 20
 TOY_TOL = 0.01
 # the benchmark's batch of reads (perfbench's query cells)
 BENCH_BATCH = 65536
-HOST_ROUNDS = 20
 BUILD_CHECK_GENOMES = 64
 DIST_GENOMES = 8
 SLICE = 1 << 24
@@ -243,13 +230,10 @@ KERNEL_INFO = {
                    "cammiq_tpu/query/classify.py:160", "quant"),
     "case_count@gather": ("cammiq_tpu_torch/csrc/case_count.cu",
                           "cammiq_tpu/query/classify.py:160", "gather"),
-    # the grid's widths: two shards' slots concatenated, [8192, 2 x maxm]
-    # (phase 8b) and the gather twin's [b, 600] (phase 9)
+    # the grid's width: two shards' slots concatenated, [8192, 2 x maxm]
+    # (phase 8b)
     "case_count@shards": ("cammiq_tpu_torch/csrc/case_count.cu",
                           "cammiq_tpu/query/classify.py:160", "shards"),
-    "case_count@gather_shards": ("cammiq_tpu_torch/csrc/case_count.cu",
-                                 "cammiq_tpu/query/classify.py:160",
-                                 "gather_shards"),
     # XLA work, not a Pallas kernel: the quant solver's FISTA chunk
     # (fori_loop in fista, vmap over subsets in solve_subsets), at the
     # mixture's stage-1 chunk (S = 1), an enumeration batch (S = 2^m) and a
@@ -281,8 +265,6 @@ PATH_KERNELS = {
     "build": ("first_of_run", "segmented_min", "lcp_pairs", "occ_count"),
     "build_check": ("first_of_run", "segmented_min", "lcp_pairs", "occ_count"),
     "gather": GATHER_KERNELS + UPLOAD_KERNELS,
-    "gather_grid": GATHER_KERNELS,
-    "gather_shards": GATHER_KERNELS,
     "refcompat": SORTJOIN_KERNELS + ("gather_probe",) + UPLOAD_KERNELS,
     "quant_scale": ("quant_fista",),
 }
@@ -348,6 +330,38 @@ def cuda_median_ms(fn, reps: int = 11, inner: int = 20, warmup: int = 3) -> floa
         e.synchronize()
         times.append(s.elapsed_time(e) / inner)
     return statistics.median(times)
+
+
+def device_ms(fn, calls: int = 20, reps: int = 3) -> float | None:
+    """Device time of one call without the host's issue cost: a sleep
+    kernel holds the stream while the host enqueues `calls` calls, so the
+    CUDA events time them back to back on the device.  Median of `reps`;
+    None when the host could not enqueue the calls within the sleep."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    enqueue_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    sleep_s = 4 * enqueue_s + 1e-3
+    times = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(sleep_s * 2e9))       # >= sleep_s below 2 GHz
+        t = time.perf_counter()
+        s.record()
+        for _ in range(calls):
+            fn()
+        e.record()
+        queued = time.perf_counter() - t < sleep_s
+        e.synchronize()
+        if queued:
+            times.append(s.elapsed_time(e) / calls)
+    return statistics.median(times) if times else None
 
 
 def probe_canon(out, args):
@@ -750,87 +764,6 @@ def stage_table(stages: dict, peaks: dict, other: dict | None = None,
         for k, v in stages.items())
 
 
-def accumulate_gather(classify, reads, G: int) -> dict:
-    """Sum ``classify(codes, lengths)`` (host counts of one batch, the
-    ``DistQuerySession.classify`` contract) over the reads' batches; pair
-    counts from the assigned pairs."""
-    import numpy as np
-
-    acc = None
-    pairs = {}
-    for b in reads.batches(BATCH):
-        c = classify(b.codes, b.lengths)
-        got = {f: np.asarray(getattr(c, f), np.int64) for f in
-               ("cnts_u", "cnts_d", "rcount_u", "rcount_d", "nundet", "nconf")}
-        acc = got if acc is None else {f: acc[f] + got[f] for f in acc}
-        ok = c.pair_lo >= 0
-        for a, z in zip(c.pair_lo[ok].tolist(), c.pair_hi[ok].tolist()):
-            pairs[a, z] = pairs.get((a, z), 0) + 1
-    acc["nundet"], acc["nconf"] = int(acc["nundet"]), int(acc["nconf"])
-    acc["pairs"] = pairs
-    return acc
-
-
-class TwoGatherShards:
-    """Two FlatIndex shards of both tables (``shard_flat_index``) on one
-    card, probed in turn with their id bases, their slots concatenated as
-    a row's gather gives them; ``classify`` follows the
-    ``DistQuerySession.classify`` contract."""
-
-    def __init__(self, index_u, index_d, G, device):
-        from cammiq_tpu_torch.parallel import dist_query as dq
-
-        self.G, self.device = G, device
-        self.index_u, self.index_d = index_u, index_d
-        self.su, self.sd = (dq.shard_flat_index(x, 2) for x in (index_u, index_d))
-        self.shards = [
-            [dq._local_didx({k: v[m] for k, v in dq._shard_arrays(s).items()},
-                            s.h, s.kw, s.max_probes, s.max_bucket, device)
-             for s in (self.su, self.sd)] for m in range(2)]
-        self.geometry = {"e_pad": (self.su.e_pad, self.sd.e_pad),
-                         "table_rows": self.su.table_start.shape[1],
-                         "max_probes": (self.su.max_probes, self.sd.max_probes)}
-
-    def slots(self, c, ln):
-        """The batch's slots against both shards, concatenated: [b, 600]."""
-        import torch
-
-        from cammiq_tpu_torch.query import classify as gc
-
-        su, sd = self.su, self.sd
-        mss = [gc.collect_matches(du, dd, c, ln, m * su.e_pad,
-                                  2 * su.e_pad + m * sd.e_pad)
-               for m, (du, dd) in enumerate(self.shards)]
-        return gc.MatchSlots(*(torch.cat([getattr(x, f) for x in mss], 1)
-                               for f in gc.MatchSlots._fields))
-
-    def classify(self, codes, lengths):
-        import types
-
-        import numpy as np
-        import torch
-
-        from cammiq_tpu_torch.query import classify as gc
-
-        su, sd = self.su, self.sd
-        c = torch.from_numpy(codes).to(self.device).contiguous()
-        ln = torch.from_numpy(lengths).to(self.device)
-        ms = self.slots(c, ln)
-        rcs = [torch.zeros(2 * s.e_pad, dtype=torch.int32, device=self.device)
-               for s in (su, sd)]
-        cc = gc.case_count(ms, ln, self.G, sc_mode=True,
-                           rcounts=((rcs[0], 0), (rcs[1], 2 * su.e_pad)))
-        out = {f: getattr(cc, f).cpu().numpy() for f in cc._fields}
-        for name, s, part, idx in (("rcount_u", su, rcs[0], self.index_u),
-                                   ("rcount_d", sd, rcs[1], self.index_d)):
-            part = part.cpu().numpy()
-            rc = np.zeros(idx.num_entries, np.int64)
-            sel = s.orig_id.reshape(-1) >= 0
-            rc[s.orig_id.reshape(-1)[sel]] = part[sel]
-            out[name] = rc
-        return types.SimpleNamespace(**out)
-
-
 class Tee(io.StringIO):
     """A text buffer that also writes through to another stream."""
 
@@ -871,8 +804,6 @@ class Smoke:
         results (``canon`` maps an output to what must be equal), median
         CUDA-event times, the device-only time, the bound beside them."""
         import torch
-
-        from cammiq_tpu_torch.tools.pass_bench import device_ms
 
         got = kern(*args, **kw)
         torch.cuda.synchronize()
@@ -921,13 +852,13 @@ class Smoke:
             outs = []
             for fn in (kcc.case_count, kcc.case_count_plain):
                 rc = torch.zeros(E, dtype=torch.int32, device=lengths.device)
-                outs.append((*fn(ms, lengths, G, sc_mode=sc, rcounts=((rc, 0),)), rc))
+                outs.append((*fn(ms, lengths, G, sc_mode=sc, rcount=rc), rc))
             torch.cuda.synchronize()
             err = max(err, *(max_abs_err(a, b) for a, b in zip(*outs)))
             if not all(torch.equal(a, b) for a, b in zip(*outs)):
                 raise AssertionError(f"{name}: kernel != plain version (sc_mode={sc})")
         rc = torch.zeros(E, dtype=torch.int32, device=lengths.device)
-        traffic = kcc.case_count_traffic(ms, lengths, G, ((rc, 0),))
+        traffic = kcc.case_count_traffic(ms, lengths, G, rc)
         log(f"{name}: slots {tuple(ms.slots.shape)}, {traffic['valid']} valid in "
             f"{traffic['rid_sectors']} 32-byte sectors of each rid array, "
             f"{traffic['rcount_touched']} rcount elements touched; counts, "
@@ -936,7 +867,7 @@ class Smoke:
         log(f"{name} launch geometry: {geometry}")
         self.compare(name, kcc.case_count, kcc.case_count_plain, (ms, lengths, G),
                      bound(traffic["bytes"], traffic["ops"]), plain_reps=(5, 5, 1),
-                     rcounts=((rc, 0),))
+                     rcount=rc)
         self.kernels[name]["max_abs_err"] = max(err, self.kernels[name]["max_abs_err"])
         self.kernels[name]["geometry"] = geometry
 
@@ -1138,25 +1069,6 @@ class Smoke:
                     and np.array_equal(got[1].cpu().numpy(), lengths)):
                 raise AssertionError(f"{name}: the codes or lengths differ "
                                      "from the batch")
-        # the host: the packer against the staging copy it replaced
-        wide = np.zeros((B, 256), np.int8)
-        wide[:, :Lp] = codes
-        staged = torch.empty((B, Lp), dtype=torch.int8, pin_memory=True).numpy()
-        host = {}
-        for form, src in (("contiguous", codes), ("strided", wide[:, :Lp])):
-            times = {"pack": [], "copy": []}
-            for _ in range(HOST_ROUNDS):
-                t = time.perf_counter()
-                krp.pack_reads(src, lengths, hb.numpy())
-                times["pack"].append(time.perf_counter() - t)
-                t = time.perf_counter()
-                staged[...] = src
-                times["copy"].append(time.perf_counter() - t)
-            host[form] = {k: 1e3 * statistics.median(v) for k, v in times.items()}
-        self.results["upload_host_ms"] = host
-        log(f"the host a [{B}, {Lp}] batch, median of {HOST_ROUNDS} (ms): "
-            f"{host}; packed {krp.layout(B, Lp)[2]} B against {B * (Lp + 4)} B "
-            f"unpacked")
 
     # ---- 4. toy end to end through the CLI
     def toy_cli(self):
@@ -1271,27 +1183,15 @@ class Smoke:
                 and counts.nundet + counts.nconf <= reads.num_reads
                 and assigned > reads.num_reads // 2):
             raise AssertionError("implausible main-path output")
-        # steady state: the same pass again (maxm settled, kernels warm)
-        runs = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t = time.time()
-            c2 = sess.run(reads)
-            runs.append(time.time() - t)
-            for f in ("cnts_u", "cnts_d", "rcount_u", "rcount_d"):
-                if not np.array_equal(getattr(c2, f), getattr(counts, f)):
-                    raise AssertionError(f"repeat pass differs in {f}")
-        best = min(runs)
-        self.results["pass_s"] = runs
-        self.results["reads_per_s"] = reads.num_reads / statistics.median(runs)
-        self.results["batch_ms"] = statistics.median(runs) / N_BATCHES * 1e3
+        # the same pass again (maxm settled): the same counts
+        c2 = sess.run(reads)
+        for f in ("cnts_u", "cnts_d", "rcount_u", "rcount_d"):
+            if not np.array_equal(getattr(c2, f), getattr(counts, f)):
+                raise AssertionError(f"repeat pass differs in {f}")
         self.results["max_memory_allocated"] = torch.cuda.max_memory_allocated()
         self.results["solve_s"] = info["solve_time"]
         self.results["quant_candidates"] = int(prob.exist0.sum())
-        log(f"steady state: passes {['%.4f' % r for r in runs]} s -> "
-            f"{self.results['reads_per_s']:.1f} reads/s (median; best "
-            f"{reads.num_reads / best:.1f}), {self.results['batch_ms']:.3f} "
-            f"ms/batch; max_memory_allocated "
+        log(f"repeat pass: the same counts; max_memory_allocated "
             f"{self.results['max_memory_allocated'] / 1e9:.3f} GB")
         # one batch through the kernels (cuda) vs the plain versions (cpu)
         dm_cpu = TorchMergedIndex.from_artifact(art, "cpu")
@@ -1336,25 +1236,6 @@ class Smoke:
             f"host sync; host syncs of one pass of {N_BATCHES} batches: {counts}")
         return {"batch": 0, "pass": counts}
 
-    # ---- 7. where a steady-state pass spends device time
-    def profile(self, sess, reads):
-        from cammiq_tpu_torch.tools.pass_bench import profile_pass
-
-        sess.run(reads)                                   # warm, maxm settled
-        prof = profile_pass(lambda: sess.run(reads))
-        self.results["profile_wall_ms"] = prof["wall_ms"]
-        self.results["profile_device_ms"] = prof["device_ms"]
-        self.results["profile_device_ops"] = prof["device_ops"]
-        self.results["profile_top"] = prof["lines"][:12]
-        with open(os.path.join(OUT_DIR, "chip_smoke_profile.txt"), "w") as f:
-            f.write("\n".join(prof["lines"]) + "\n")
-        log(f"one pass under the profiler: wall {prof['wall_ms']:.3f} ms, device "
-            f"busy {prof['device_ms']:.3f} ms "
-            f"({100 * prof['device_ms'] / prof['wall_ms']:.1f}%), "
-            f"{prof['device_ops']} device operations "
-            f"({prof['device_ops'] / N_BATCHES:.1f} a batch); device time by kernel:\n"
-            + "\n".join(prof["lines"][:12]))
-
     # ---- 6. Type-II at config-#3 scale
     def type2_main(self, art, sess, reads):
         import numpy as np
@@ -1386,29 +1267,16 @@ class Smoke:
         ident_s = time.time() - t
         if not (redist.shape == (G,) and np.isfinite(redist).all()):
             raise AssertionError("implausible solve_ident output")
-        # steady state: sc and quant passes in turns, so the two modes
-        # are compared on the same host at the same time
-        runs = {"sc": [], "quant": []}
-        for mode in ("sc", "quant", "quant", "sc", "sc", "quant"):
-            torch.cuda.synchronize()
-            t = time.time()
-            c2 = sess.run(reads, sc_mode=mode == "sc")
-            runs[mode].append(time.time() - t)
-            if mode == "sc" and c2.pair_counts != counts.pair_counts:
-                raise AssertionError("repeat sc-mode pass differs in pair_counts")
-        rate = {m: reads.num_reads / statistics.median(r) for m, r in runs.items()}
+        if sess.run(reads, sc_mode=True).pair_counts != counts.pair_counts:
+            raise AssertionError("repeat sc-mode pass differs in pair_counts")
         self.results["typeII"] = {
             "pair_table": P, "pairs_hit": len(counts.pair_counts),
             "pair_assigned_reads": paired, "first_pass_s": pass_s,
-            "pass_s": runs, "reads_per_s": rate["sc"],
-            "quant_reads_per_s_interleaved": rate["quant"],
             "ident_s": ident_s, "ident_exist": int(np.sum(exist)),
             "launches": launches}
         log(f"Type-II pass: P={P} pairs in the table, {len(counts.pair_counts)} "
-            f"hit, {paired} pair-assigned reads; first pass {pass_s:.3f} s; "
-            f"in turns with quant: sc {['%.4f' % r for r in runs['sc']]} s -> "
-            f"{rate['sc']:.1f} reads/s, quant {['%.4f' % r for r in runs['quant']]}"
-            f" s -> {rate['quant']:.1f} reads/s; solve_ident {ident_s:.3f} s, "
+            f"hit, {paired} pair-assigned reads; first pass {pass_s:.3f} s, a "
+            f"second the same pair counts; solve_ident {ident_s:.3f} s, "
             f"{int(np.sum(exist))} genomes; launches {launches}")
         # one batch through the kernels (cuda) vs the plain versions (cpu)
         dm_cpu = TorchMergedIndex.from_artifact(art, "cpu")
@@ -1806,7 +1674,6 @@ class Smoke:
         from cammiq_tpu_torch.config import QueryConfig
         from cammiq_tpu_torch.parallel.mesh import ProcessGrid
         from cammiq_tpu_torch.query.pipeline import QuerySession
-        from cammiq_tpu_torch.tools.pass_bench import profile_pass
 
         G = self.results["genomes"] + 1
         out = self.results["grid"] = {}
@@ -1855,30 +1722,11 @@ class Smoke:
                 for m in ("quant", "sc")}}
             if out["syncs"]["pass"] != {"quant": 1, "sc": 1}:
                 raise AssertionError(f"grid pass syncs {out['syncs']}")
-            # pass times in turns: single, grid, grid, single, single, grid
-            runs = {"single": [], "grid": []}
-            for who in ("single", "grid", "grid", "single", "single", "grid"):
-                torch.cuda.synchronize()
-                t = time.time()
-                (sess if who == "single" else gsess).run(reads)
-                runs[who].append(time.time() - t)
-            out["pass_s"] = runs
-            # the same two passes under the profiler, for what the grid adds
-            out["profile"] = {who: profile_pass(lambda: r.run(reads))
-                              for who, r in (("single", sess), ("grid", gsess))}
-            for who, pr in out["profile"].items():
-                pr["lines"] = pr["lines"][:14]
-                log(f"{who} pass under the profiler: wall {pr['wall_ms']:.3f} ms, "
-                    f"device busy {pr['device_ms']:.3f} ms, {pr['device_ops']} "
-                    f"device operations; top:\n" + "\n".join(pr["lines"][:8]))
             log(f"world-of-one NCCL grid (1 x 1): session start "
                 f"{out['grid_session_start_s']:.1f} s, shard "
                 f"{out['grid_geometry']}; quant and sc counts equal the single "
                 f"session's; launches {out['launches']}; no host sync in a "
-                f"quant or sc batch, a pass's syncs {out['syncs']['pass']}; "
-                f"quant passes in turns: single "
-                f"{['%.4f' % r for r in runs['single']]} s, grid "
-                f"{['%.4f' % r for r in runs['grid']]} s")
+                f"quant or sc batch, a pass's syncs {out['syncs']['pass']}")
             del gsess
         finally:
             dist.destroy_process_group()
@@ -1924,7 +1772,7 @@ class Smoke:
                    for dm in shards]
             slots = MatchSlots(*(torch.cat([getattr(mt.slots, f) for mt in mts], 1)
                                  for f in MatchSlots._fields))
-            case_count(slots, lengths, G, rcounts=((acc["rcount"], 0),),
+            case_count(slots, lengths, G, rcount=acc["rcount"],
                        counts=acc["counts"])
             for mt in mts:
                 acc["ovs"] += mt.overflow_slots
@@ -1975,21 +1823,17 @@ class Smoke:
                 f"{full.get('device_ms')}), second of two shards {shard['ms']:.4f} ms "
                 f"(device only {shard['device_ms']})")
 
-    # ---- 9. the gather engine: session, kernel, distributed twin
+    # ---- 9. the gather engine: session and kernel
     def gather_engine(self, mdir, sess, reads):
         import numpy as np
         import torch
-        import torch.distributed as dist
 
         from cammiq_tpu_torch.config import QueryConfig
         from cammiq_tpu_torch.index.table import load_flat_index_pair
         from cammiq_tpu_torch.kernels import gather_probe as kgp
-        from cammiq_tpu_torch.parallel.dist_query import DistQuerySession
-        from cammiq_tpu_torch.parallel.mesh import ProcessGrid
         from cammiq_tpu_torch.query import classify as gc
         from cammiq_tpu_torch.query import probe as gprobe
         from cammiq_tpu_torch.query.pipeline import QuerySession
-        from cammiq_tpu_torch.tools.pass_bench import profile_pass
 
         G = self.results["genomes"] + 1
         out = self.results["gather"] = {}
@@ -2016,7 +1860,6 @@ class Smoke:
         counts = gsess.run(reads)
         out["launches"] = read_counts("gather", self.results)
         sc = gsess.run(reads, sc_mode=True)
-        self.gather_counts = counts
         for c, want, mode in ((counts, self.quant_counts, "quant"),
                               (sc, self.sc_counts, "sc")):
             for f in ("cnts_u", "cnts_d") + (("rcount_u", "rcount_d") if mode == "quant" else ()):
@@ -2057,59 +1900,6 @@ class Smoke:
                      args, bnd, plain_reps=(3, 1, 1))
         self.case_count_vs_plain("case_count@gather", gc.MatchSlots(*got), lengths,
                                  G, gsess._rc_size)
-        # quant passes of the two engines in turns
-        runs = {"sortjoin": [], "gather": []}
-        for who in ("sortjoin", "gather", "gather", "sortjoin", "sortjoin", "gather"):
-            torch.cuda.synchronize()
-            t = time.time()
-            (sess if who == "sortjoin" else gsess).run(reads)
-            runs[who].append(time.time() - t)
-        out["pass_s"] = runs
-        out["reads_per_s"] = {w: reads.num_reads / statistics.median(r)
-                              for w, r in runs.items()}
-        out["profile"] = profile_pass(lambda: gsess.run(reads))
-        out["profile"]["lines"] = out["profile"]["lines"][:14]
-        pr = out["profile"]
-        log(f"quant passes in turns: sort join {['%.4f' % r for r in runs['sortjoin']]}"
-            f" s -> {out['reads_per_s']['sortjoin']:.1f} reads/s; gather "
-            f"{['%.4f' % r for r in runs['gather']]} s -> "
-            f"{out['reads_per_s']['gather']:.1f} reads/s; gather pass under the "
-            f"profiler: wall {pr['wall_ms']:.3f} ms, device busy {pr['device_ms']:.3f} "
-            f"ms ({100 * pr['device_ms'] / pr['wall_ms']:.1f}%), {pr['device_ops']} "
-            f"device operations ({pr['device_ops'] / N_BATCHES:.1f} a batch); top:\n"
-            + "\n".join(pr["lines"][:8]))
-        # the distributed twin: a world of one NCCL rank, then two shards
-        store = dist.TCPStore("127.0.0.1", free_port(), 1, True,
-                              timeout=datetime.timedelta(seconds=120))
-        dist.init_process_group("nccl", store=store, rank=0, world_size=1,
-                                timeout=datetime.timedelta(seconds=300))
-        try:
-            t = time.time()
-            ds = DistQuerySession(ProcessGrid(1, 1, sess.device), index_u,
-                                  index_d, G, sc_mode=True, device=sess.device)
-            out["grid_session_start_s"] = time.time() - t
-            zero_counts()
-            grid_counts = accumulate_gather(ds.classify, reads, G)
-            out["grid_launches"] = read_counts("gather_grid", self.results)
-        finally:
-            dist.destroy_process_group()
-        self.check_gather(grid_counts, counts, sc, "1 x 1 NCCL grid")
-        del ds
-        t = time.time()
-        twin = TwoGatherShards(index_u, index_d, G, sess.device)
-        out["two_shard_build_s"] = time.time() - t
-        out["two_shard_geometry"] = twin.geometry
-        zero_counts()
-        shard_counts = accumulate_gather(twin.classify, reads, G)
-        out["two_shard_launches"] = read_counts("gather_shards", self.results)
-        self.check_gather(shard_counts, counts, sc, "two shards")
-        self.case_count_vs_plain("case_count@gather_shards", twin.slots(codes, lengths),
-                                 lengths, G, 2 * (twin.su.e_pad + twin.sd.e_pad))
-        log(f"gather twin: 1 x 1 NCCL grid (start {out['grid_session_start_s']:.1f} "
-            f"s, launches {out['grid_launches']}) and two shards (built in "
-            f"{out['two_shard_build_s']:.1f} s, {twin.geometry}, launches "
-            f"{out['two_shard_launches']}): counts, rcounts and pairs equal the "
-            f"single-device gather's")
 
     # ---- 14. index formats on the card
     def formats_reference(self):
@@ -2423,17 +2213,6 @@ class Smoke:
             f"its start, {waited_s:.1f} s of it waited for here; every file equal "
             f"to phase 2's ({len(names)} files); {stderr.strip().splitlines()[-1]}")
 
-    @staticmethod
-    def check_gather(got: dict, counts, sc, what: str) -> None:
-        import numpy as np
-
-        for f in ("cnts_u", "cnts_d", "rcount_u", "rcount_d"):
-            if not np.array_equal(got[f], getattr(counts, f)):
-                raise AssertionError(f"gather {what} differs in {f}")
-        if (got["nundet"], got["nconf"], got["pairs"]) != (
-                counts.nundet, counts.nconf, sc.pair_counts):
-            raise AssertionError(f"gather {what} differs in nundet/nconf/pairs")
-
     # ---- 15. quant at scale: the mixture's solves on config #3
     def quant_scale(self, art, sess):
         """realized_free.py's mixture (MIX_PRESENT genomes in lognormal
@@ -2600,7 +2379,6 @@ class Smoke:
         import torch
 
         from cammiq_tpu_torch.kernels import quant_fista as kqf
-        from cammiq_tpu_torch.tools.pass_bench import device_ms
 
         x0, lam, lbv, ubv, n_it, p, step, rho = args
         S = max(x0.shape[0] if x0.dim() == 2 else 1,
@@ -2702,7 +2480,6 @@ def main() -> int:
         s.phase("main path at config-#3 scale", s.main_path, art, sess, reads)
         if "main path at config-#3 scale" not in s.failed:
             s.phase("Type-II at config-#3 scale", s.type2_main, art, sess, reads)
-        s.phase("profile of one pass", s.profile, sess, reads)
         if "Type-II at config-#3 scale" not in s.failed:
             s.phase("distributed query: NCCL grid and two shards", s.grid, art,
                     sess, reads)

@@ -26,10 +26,9 @@ torch.set_num_threads(1)
 B = 64
 G_SMALL = 12
 ID_SPACE = 200_000
-# rcount targets (lo, size): the whole id space, or two ranges that leave
-# ids out below, between and above them
-RANGES = {1: ((0, ID_SPACE),),
-          2: ((3, ID_SPACE // 2), (ID_SPACE // 2 + 11, ID_SPACE // 3))}
+# the rcount's size: the whole id space (r1), or its lower half (r2), so
+# the ids past the buffer stay uncounted
+RC_SIZE = {1: ID_SPACE, 2: ID_SPACE // 2}
 CASES = (
     [(b, 16, 1, False, G_SMALL) for b in CASE_BRANCHES]
     + [(b, 16, 1, False, G_SMALL) for b in ("dups", "all_big", "padding")]
@@ -70,19 +69,19 @@ def test_case_count_matches_jax(branch, S, nranges, sc_mode, G):
     every pair and not; one pair; P >= 2 with an intersection of 0, 1 and
     2 genomes; U > 1), duplicated slots, rows of only BIG, padding reads
     of length 0 that hold matches, sc mode, widths 16, 300 and 4096, one
-    and two rcount ranges, and G = 5000.  ``counts`` is added to, as the
-    grid's buffer is."""
+    and an rcount over all ids or over the lower half, and G = 5000.
+    ``counts`` is added to, as the grid's buffer is."""
     cols = case_rows(S * 7 + nranges + G, B, S, G, branch, id_space=ID_SPACE)
-    ranges = RANGES[nranges]
-    want, want_rc = _jax_case(*map(jnp.asarray, cols), G=G, sc_mode=sc_mode,
-                              ranges=ranges)
+    size = RC_SIZE[nranges]
+    want, (want_rc,) = _jax_case(*map(jnp.asarray, cols), G=G, sc_mode=sc_mode,
+                                 ranges=((0, size),))
     assert _branch_taken(branch, want, cols[3]), branch
     slots, rid1, rid2, lengths = map(torch.from_numpy, cols)
     ms = tc.MatchSlots(slots, rid1, rid2, in_u=slots < tc.BIG)
     base = torch.arange(2 * G + 2, dtype=torch.int32)
     counts = base.clone()
-    targets = [(torch.full((size,), 7, dtype=torch.int32), lo) for lo, size in ranges]
-    got = tc.case_count(ms, lengths, G, sc_mode=sc_mode, rcounts=targets,
+    rcount = torch.full((size,), 7, dtype=torch.int32)
+    got = tc.case_count(ms, lengths, G, sc_mode=sc_mode, rcount=rcount,
                         counts=counts)
     np.testing.assert_array_equal((counts - base).numpy(), np.concatenate(
         [want.cnts_u, want.cnts_d, [want.nundet, want.nconf]]))
@@ -91,12 +90,15 @@ def test_case_count_matches_jax(branch, S, nranges, sc_mode, G):
     for f in ("pair_lo", "pair_hi"):
         np.testing.assert_array_equal(getattr(got, f).numpy(),
                                       np.asarray(getattr(want, f)), err_msg=f)
-    for (out, _), w in zip(targets, want_rc):
-        np.testing.assert_array_equal(out.numpy() - 7, np.asarray(w))
+    np.testing.assert_array_equal(rcount.numpy() - 7, np.asarray(want_rc))
     if sc_mode and branch in ("mixed", "pair"):
         assert int((got.pair_lo >= 0).sum()) > 0
     if branch in ("mixed", "dups", "padding"):
-        assert sum(int(np.sum(w)) for w in want_rc) > 0
+        assert int(np.sum(want_rc)) > 0
+        if size < ID_SPACE:
+            # assigned reads hold ids past the buffer, left uncounted
+            case = tc.case_analysis(ms, lengths, G)
+            assert int(tc.rcounts_from_case(case, size, ID_SPACE - size).sum()) > 0
 
 
 def test_case_count_default_counts_and_no_targets():
@@ -107,7 +109,7 @@ def test_case_count_default_counts_and_no_targets():
     lengths = torch.from_numpy(cols[3])
     got = tc.case_count(ms, lengths, G_SMALL, sc_mode=True)
     rc = torch.zeros(ID_SPACE, dtype=torch.int32)
-    again = tc.case_count(ms, lengths, G_SMALL, sc_mode=True, rcounts=((rc, 0),))
+    again = tc.case_count(ms, lengths, G_SMALL, sc_mode=True, rcount=rc)
     for a, b in zip(got, again):
         assert torch.equal(a, b)
     assert int(rc.sum()) > 0

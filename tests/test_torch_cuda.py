@@ -755,7 +755,7 @@ def test_two_shards_on_one_card_match_unsharded(cuda_device, dist_index, sc_mode
                          for f in MatchSlots._fields))
     rc = torch.zeros(nrc, dtype=torch.int32, device=cuda_device)
     before = kcc.KERNEL.launches
-    case = case_count(slots, lengths, G, sc_mode=sc_mode, rcounts=((rc, 0),))
+    case = case_count(slots, lengths, G, sc_mode=sc_mode, rcount=rc)
     assert kcc.KERNEL.launches == before + 1
     for got, w in ((case.cnts_u, want.cnts_u), (case.cnts_d, want.cnts_d),
                    (case.nundet, want.nundet), (case.nconf, want.nconf),
@@ -928,15 +928,15 @@ def test_wrappers_reject_bad_inputs(cuda_device):
 
 # ---- the gather engine (kernels/gather_probe.py)
 
-def _gather_both(iu, idd, codes, lengths, dev, **bases):
+def _gather_both(iu, idd, codes, lengths, dev):
     """gather_probe on ``dev`` (one launch) and its plain version on the
     same tensors."""
     du, dd = to_device_index(iu, dev), to_device_index(idd, dev)
     c, ln = torch.from_numpy(codes).to(dev), torch.from_numpy(lengths).to(dev)
     before = kgp.KERNEL.launches
-    got = kgp.gather_probe(du, dd, c, ln, **bases)
+    got = kgp.gather_probe(du, dd, c, ln)
     assert kgp.KERNEL.launches == before + 1
-    return got, kgp.gather_probe_plain(du, dd, c, ln, **bases)
+    return got, kgp.gather_probe_plain(du, dd, c, ln)
 
 
 def _assert_gather_equal(got, want, hits=True):
@@ -1034,10 +1034,18 @@ def test_gather_probe_kernel_empty_table(cuda_device, empty):
 
 
 def test_gather_probe_kernel_bases(cuda_device):
+    """The kernel places ids as JAX's single-device layout: unique hits in
+    [0, Eu), doubly hits from Eu on, Eu the unique table's device
+    length."""
     iu, idd, keys = gather_tables(9, 26)
     codes, lengths = planted_reads(10, keys, 1024, 100)
-    _assert_gather_equal(*_gather_both(iu, idd, codes, lengths, cuda_device,
-                                       u_base=1000, d_base=77_777))
+    got, want = _gather_both(iu, idd, codes, lengths, cuda_device)
+    _assert_gather_equal(got, want)
+    Eu = to_device_index(iu, "cpu").length.shape[0]
+    slots, in_u = got[0], got[3]
+    doubly = (slots < kgp.BIG) & ~in_u
+    assert bool((slots[in_u] < Eu).all()) and bool((slots[doubly] >= Eu).all())
+    assert bool(in_u.any()) and bool(doubly.any())
 
 
 def test_gather_probe_rejects_2e31_slots(cuda_device):
@@ -1108,88 +1116,25 @@ def test_gather_session_cuda_matches_sortjoin(cuda_device, dist_index, sc_mode):
                for w in caught) == 1
 
 
-def _single_gather(art, rs, G, dev):
-    du = to_device_index(art.unique_index, dev)
-    dd = to_device_index(art.doubly_index, dev)
-    Eu = du.length.shape[0]
-    rc = torch.zeros(Eu + dd.length.shape[0] + 1, dtype=torch.int32, device=dev)
-    bc = tgc.classify_batch(du, dd, torch.from_numpy(rs.codes).to(dev),
-                            torch.from_numpy(rs.lengths).to(dev), G, rc,
-                            sc_mode=True)
-    rc = rc.cpu().numpy()
-    return bc, rc[:art.unique_index.num_entries], rc[Eu:Eu + art.doubly_index.num_entries]
-
-
-def test_dist_gather_nccl_matches_single(cuda_device, dist_index, nccl_grid):
-    """DistQuerySession on a world of one NCCL rank equals the single
-    gather batch, rcount and pairs included."""
-    art, _, rs, G = dist_index
-    bc, rcu, rcd = _single_gather(art, rs, G, cuda_device)
-    got = tdq.DistQuerySession(nccl_grid, art.unique_index, art.doubly_index, G,
-                               sc_mode=True, device=cuda_device).classify(
-        rs.codes, rs.lengths)
-    for f in ("cnts_u", "cnts_d", "pair_lo", "pair_hi"):
-        np.testing.assert_array_equal(getattr(got, f), getattr(bc, f).cpu().numpy(),
-                                      err_msg=f)
-    assert (got.nundet, got.nconf) == (int(bc.nundet), int(bc.nconf))
-    np.testing.assert_array_equal(got.rcount_u, rcu)
-    np.testing.assert_array_equal(got.rcount_d, rcd)
-    assert rcu.sum() > 0
-
-
-def test_dist_gather_two_shards_on_one_card(cuda_device, dist_index):
-    """Two FlatIndex shards probed through the kernel with their id bases,
-    their slots concatenated as a row's gather gives them: the case
-    analysis and the rcounts mapped back through orig_id equal the
-    unsharded batch's."""
-    art, _, rs, G = dist_index
-    bc, rcu, rcd = _single_gather(art, rs, G, cuda_device)
-    su, sd = (tdq.shard_flat_index(x, 2) for x in (art.unique_index, art.doubly_index))
-    codes = torch.from_numpy(rs.codes).to(cuda_device)
-    lengths = torch.from_numpy(rs.lengths).to(cuda_device)
-    mss = []
-    for m in range(2):
-        du, dd = (tdq._local_didx({k: v[m] for k, v in tdq._shard_arrays(s).items()},
-                                  s.h, s.kw, s.max_probes, s.max_bucket, cuda_device)
-                  for s in (su, sd))
-        mss.append(tgc.collect_matches(du, dd, codes, lengths, m * su.e_pad,
-                                       2 * su.e_pad + m * sd.e_pad))
-    ms = MatchSlots(*(torch.cat([getattr(x, f) for x in mss], 1)
-                      for f in MatchSlots._fields))
-    rcs = [torch.zeros(2 * s.e_pad, dtype=torch.int32, device=cuda_device)
-           for s in (su, sd)]
-    case = case_count(ms, lengths, G, sc_mode=True,
-                      rcounts=((rcs[0], 0), (rcs[1], 2 * su.e_pad)))
-    for f in ("cnts_u", "cnts_d", "nundet", "nconf", "pair_lo", "pair_hi"):
-        assert torch.equal(getattr(case, f), getattr(bc, f)), f
-    for s, part, want in ((su, rcs[0], rcu), (sd, rcs[1], rcd)):
-        part = part.cpu().numpy()
-        got = np.zeros_like(want)
-        sel = s.orig_id.reshape(-1) >= 0
-        got[s.orig_id.reshape(-1)[sel]] = part[sel]
-        np.testing.assert_array_equal(got, want)
-
-
 # ---- the case analysis and rcount (kernels/case_count.py)
 
 CASE_IDS = 200_000
-CASE_RANGES = {1: ((0, CASE_IDS),),
-               2: ((3, CASE_IDS // 2), (CASE_IDS // 2 + 11, CASE_IDS // 3))}
+# the rcount's size: every id, or the lower half (ids past it uncounted)
+CASE_RC_SIZE = {1: CASE_IDS, 2: CASE_IDS // 2}
 
 
 def _case_both(cols, G, sc_mode, nranges, dev):
     """case_count (one launch) and its plain version on the same CUDA
-    tensors, each into fresh rcount targets: (counts + pairs, targets)."""
+    tensors, each into a fresh rcount: (counts + pairs, [rcount])."""
     slots, rid1, rid2, lengths = (torch.from_numpy(x).to(dev) for x in cols)
     ms = MatchSlots(slots, rid1, rid2, in_u=slots < kcc.BIG)
     outs = []
     for fn in (kcc.case_count, kcc.case_count_plain):
-        targets = [(torch.zeros(size, dtype=torch.int32, device=dev), lo)
-                   for lo, size in CASE_RANGES[nranges]]
+        rc = torch.zeros(CASE_RC_SIZE[nranges], dtype=torch.int32, device=dev)
         before = kcc.KERNEL.launches
-        out = fn(ms, lengths, G, sc_mode=sc_mode, rcounts=targets)
+        out = fn(ms, lengths, G, sc_mode=sc_mode, rcount=rc)
         assert kcc.KERNEL.launches == before + (fn is kcc.case_count)
-        outs.append((list(out), [t for t, _ in targets]))
+        outs.append((list(out), [rc]))
     torch.cuda.synchronize()
     return outs
 
@@ -1216,9 +1161,9 @@ CASE_WIDTHS = (1, 7, 8, 15, 16, 17, 31, 32, 33, 300, 600, 1024, 1025, 4096)
        if S not in (16, 300, 4096) for b in ("mixed", "dups")]))
 def test_case_count_kernel_matches_plain(cuda_device, branch, S, nranges, sc_mode, G):
     """The rows of tests/test_torch_casecount.py (every branch of the case
-    table, duplicated slots, rows of only BIG, padding reads, one and two
-    rcount ranges, G = 5000) at every width of ``CASE_WIDTHS``: the kernel
-    equals its plain version exactly."""
+    table, duplicated slots, rows of only BIG, padding reads, an rcount over
+    every id and over the lower half, G = 5000) at every width of
+    ``CASE_WIDTHS``: the kernel equals its plain version exactly."""
     cols = case_rows(S * 7 + nranges + G, 64, S, G, branch, id_space=CASE_IDS)
     _assert_case_equal(_case_both(cols, G, sc_mode, nranges, cuda_device))
 
@@ -1303,7 +1248,7 @@ def test_case_count_kernel_unaligned_rows(cuda_device):
     outs = []
     for fn in (kcc.case_count, kcc.case_count_plain):
         rc = torch.zeros(CASE_IDS, dtype=torch.int32, device=cuda_device)
-        outs.append((list(fn(ms, lengths, 40, sc_mode=True, rcounts=((rc, 0),))), [rc]))
+        outs.append((list(fn(ms, lengths, 40, sc_mode=True, rcount=rc)), [rc]))
     _assert_case_equal(outs)
 
 
@@ -1357,7 +1302,7 @@ def test_case_count_kernel_on_strain_slots(cuda_device, strain_db, engine, sc_mo
     outs = []
     for fn in (kcc.case_count, kcc.case_count_plain):
         rc = torch.zeros(sess._rc_size, dtype=torch.int32, device=cuda_device)
-        outs.append((list(fn(ms, lengths, G, sc_mode=sc_mode, rcounts=((rc, 0),))),
+        outs.append((list(fn(ms, lengths, G, sc_mode=sc_mode, rcount=rc)),
                      [rc]))
     torch.cuda.synchronize()
     _assert_case_equal(outs)
@@ -1365,8 +1310,9 @@ def test_case_count_kernel_on_strain_slots(cuda_device, strain_db, engine, sc_mo
 
 
 def test_case_count_kernel_makes_no_host_sync(cuda_device):
-    """One launch with two rcount targets and a given counts buffer under
-    sync debug mode "error"; then equal to the plain version."""
+    """One launch with an rcount and a given counts buffer, views of one
+    buffer, under sync debug mode "error"; then equal to the plain
+    version."""
     G = 40
     cols = case_rows(9, 8192, 300, G, "mixed", id_space=CASE_IDS)
     slots, rid1, rid2, lengths = (torch.from_numpy(x).to(cuda_device) for x in cols)
@@ -1380,7 +1326,7 @@ def test_case_count_kernel_makes_no_host_sync(cuda_device):
             torch.cuda.set_sync_debug_mode("error")
         try:
             out = fn(ms, lengths, G, sc_mode=True, counts=buf[:2 * G + 2],
-                     rcounts=((rc[:CASE_IDS // 2], 0), (rc[CASE_IDS // 2:], CASE_IDS // 2)))
+                     rcount=rc)
         finally:
             torch.cuda.set_sync_debug_mode("default")
         outs.append((buf, out.pair_lo, out.pair_hi))
@@ -1398,8 +1344,10 @@ def test_case_count_rejects_bad_inputs(cuda_device):
         kcc.case_count(MatchSlots(z.long(), z, z, None), ln, 5)
     with pytest.raises(ValueError):
         kcc.case_count(ms, ln[:3], 5)
+    with pytest.raises(TypeError):
+        kcc.case_count(ms, ln, 5, rcount=ln.long())
     with pytest.raises(ValueError):
-        kcc.case_count(ms, ln, 5, rcounts=((ln, 0),) * 3)
+        kcc.case_count(ms, ln, 5, rcount=z)
     with pytest.raises(ValueError):
         kcc.case_count(ms, ln, 5, counts=torch.zeros(11, dtype=torch.int32,
                                                      device=cuda_device))

@@ -8,9 +8,12 @@
   Their QueryCounts must be bit-identical to the JAX mesh session
   (``QuerySession(..., engine="sortjoin", mesh=make_mesh(dp, mp))`` on
   the 8 CPU devices of the conftest) and to the port's single session.
-- CLI runs: ``-t 2`` and ``--model_shards 2`` as ranks of one world; Type-I
-  and Type-II files byte-identical to ``cammiq_tpu.cli`` with the same
-  flags, the quant file to the port's own single-process file.
+  A grid session asked for the gather engine runs the sort join, as the
+  JAX package's does: distributed query has one design.
+- CLI runs: ``-t 2`` and ``--model_shards 2`` as ranks of one world, with
+  and without ``--engine gather``; Type-I and Type-II files byte-identical
+  to ``cammiq_tpu.cli`` with the same flags, the quant file to the port's
+  own single-process file.
 
 Every launch has a wall-clock limit and every process group a timeout, so
 a hang fails one test.
@@ -62,6 +65,7 @@ def _counts_record(c, sess) -> dict:
     rec = {f: getattr(c, f) for f in COUNT_FIELDS}
     rec.update(nundet=c.nundet, nconf=c.nconf, num_reads=c.num_reads,
                mean_read_len=c.mean_read_len, maxm=sess.maxm, frac=sess.frac,
+               engine=sess.engine,
                pairs=np.asarray([[a, b, n] for (a, b), n in pk], np.int64)
                .reshape(-1, 3))
     return rec
@@ -83,7 +87,7 @@ def _worker(spec_path: str) -> None:
         for sc in spec["sessions"]:
             if sc["source"] == "npz":
                 sess = QuerySession(index_u, index_d, G, cfg, device="cpu",
-                                    grid=grid)
+                                    grid=grid, engine=sc["engine"])
             else:
                 sess = QuerySession.from_artifact(artifact, G, cfg,
                                                   device="cpu", grid=grid)
@@ -98,15 +102,6 @@ def _worker(spec_path: str) -> None:
                 tsj.HIT_FLOOR, tsj.LIST_SLACK = floor, slack
             np.savez(out / f"{sc['name']}.rank{rank}.npz",
                      **_counts_record(c, sess), **sess.dist.geometry)
-        if spec.get("gather"):
-            with np.load(spec["gather"]) as z:
-                codes, lengths = z["codes"], z["lengths"]
-            for sc in (False, True):
-                gc = tdq.DistQuerySession(grid, index_u, index_d, G,
-                                          sc_mode=sc, device="cpu")
-                got = gc.classify(codes, lengths)
-                np.savez(out / f"gather_{'sc' if sc else 'quant'}.rank{rank}.npz",
-                         **got._asdict())
     for argv in spec["cli"]:
         cli.main(argv)          # every rank, the inactive ones too
     torch.distributed.destroy_process_group()
@@ -324,26 +319,6 @@ def test_shard_arrays_match_jax(toy, tmp_path, monkeypatch, source, mp):
         assert empty > 0
 
 
-SHARDED_FIELDS = ("h", "kw", "mp", "e_pad", "max_probes", "max_bucket",
-                  "key_words", "length", "rid1", "rid2", "ucount1", "ucount2",
-                  "table_lo", "table_hi", "table_start", "table_count",
-                  "orig_id")
-
-
-@pytest.mark.parametrize("mp", [2, 4])
-@pytest.mark.parametrize("kind", ["unique", "doubly"])
-def test_shard_flat_index_matches_jax(toy, kind, mp):
-    from cammiq_tpu.parallel import dist_query as jdq
-
-    idx = load_flat_index_pair(toy["iu"], toy["idd"])[kind == "doubly"]
-    got, want = tdq.shard_flat_index(idx, mp), jdq.shard_flat_index(idx, mp)
-    for f in SHARDED_FIELDS:
-        g, w = getattr(got, f), getattr(want, f)
-        np.testing.assert_array_equal(g, w, err_msg=f)
-        assert np.asarray(g).dtype == np.asarray(w).dtype, f
-    assert (got.orig_id >= 0).sum() == idx.num_entries
-
-
 def test_host_shard_of_files_matches_jax():
     from cammiq_tpu.parallel.multihost import host_shard_of_files as jshard
 
@@ -357,13 +332,22 @@ def test_host_shard_of_files_matches_jax():
 # ---- grid runs over gloo
 
 LAYOUTS = [(2, 1), (1, 2), (2, 2)]
-SESSIONS = [dict(name=f"{src}_{'sc' if sc else 'quant'}", source=src, sc=sc)
-            for src in ("npz", "artifact") for sc in (False, True)]
+# npzgather: the .npz pair with engine="gather", which a grid runs through
+# the sort join
+SESSIONS = [dict(name=f"{name}_{'sc' if sc else 'quant'}", source=src,
+                 engine=engine, sc=sc)
+            for name, src, engine in (("npz", "npz", "sortjoin"),
+                                      ("artifact", "artifact", "sortjoin"),
+                                      ("npzgather", "npz", "gather"))
+            for sc in (False, True)]
 # the CLI flags of each layout and its world (3 ranks for (2, 1): one rank
 # beyond the grid takes no batches)
 CLI_FLAGS = {(2, 1): (["-t", "2"], 3), (1, 2): (["--model_shards", "2"], 2)}
 CLI_MODES = {"typeI": ["--read_cnts"], "typeII": ["--read_cnts", "--doubly_unique"],
              "quant": []}
+# each CLI mode runs with the default engine and with --engine gather; a
+# run's name is its mode, or the mode and "_gather"
+CLI_ENGINES = {"": [], "_gather": ["--engine", "gather"]}
 
 
 def _cli_query(toy, mode, out, *flags):
@@ -373,19 +357,7 @@ def _cli_query(toy, mode, out, *flags):
 
 
 @pytest.fixture(scope="module")
-def gather_batch(toy, reads, tmp_path_factory):
-    """One batch of 512 reads for the gather engine's twin: the first 492
-    of the toy and its 20 hairpin reads (x + revcomp(x)), saved for the
-    workers."""
-    codes = np.concatenate([reads.codes[:492], reads.codes[-20:]])
-    lengths = np.concatenate([reads.lengths[:492], reads.lengths[-20:]])
-    path = str(tmp_path_factory.mktemp("gather_batch") / "batch.npz")
-    np.savez(path, codes=codes, lengths=lengths)
-    return dict(path=path, codes=codes, lengths=lengths)
-
-
-@pytest.fixture(scope="module")
-def grid_runs(toy, gather_batch, tmp_path_factory):
+def grid_runs(toy, tmp_path_factory):
     """Every layout's world, launched together once (its session runs and,
     for two layouts, the CLI runs): layout -> (directory, rank logs,
     world size)."""
@@ -395,13 +367,16 @@ def grid_runs(toy, gather_batch, tmp_path_factory):
         flags, world = CLI_FLAGS.get((dp, mp), ([], dp * mp))
         argvs = []
         for mode in (CLI_MODES if flags else ()):
-            prof = ["--profile", str(out / "prof")] if mode == "typeI" else []
-            argvs.append(_cli_query(toy, mode, out / f"{mode}.out", *flags,
-                                    *prof))
+            for suffix, engine in CLI_ENGINES.items():
+                prof = (["--profile", str(out / "prof")]
+                        if mode == "typeI" and not suffix else [])
+                argvs.append(_cli_query(toy, mode, out / f"{mode}{suffix}.out",
+                                        *flags, *engine, *prof))
         spec = dict(out=str(out), data=dp, model=mp, toy=toy,
                     sessions=SESSIONS + [dict(name="widen", source="npz",
-                                              sc=False, widen=True)],
-                    cli=argvs, gather=gather_batch["path"])
+                                              engine="sortjoin", sc=False,
+                                              widen=True)],
+                    cli=argvs)
         with open(out / "spec.json", "w") as f:
             json.dump(spec, f)
         worlds[dp, mp] = (world, [sys.executable, str(Path(__file__).resolve()),
@@ -437,7 +412,8 @@ def jax_mesh_counts(toy, reads):
 def test_grid_session_matches_jax_mesh(grid_runs, jax_mesh_counts, single,
                                        layout, session):
     """Every rank of the grid ends with the same counts, equal to the JAX
-    mesh session's on the same layout and to the port's single session."""
+    mesh session's on the same layout and to the port's single session; a
+    session asked for the gather engine runs the sort join on the grid."""
     out, _, _ = grid_runs[layout]
     sc = session.endswith("_sc")
     want = jax_mesh_counts(layout, sc)
@@ -445,6 +421,7 @@ def test_grid_session_matches_jax_mesh(grid_runs, jax_mesh_counts, single,
     for rec in recs:
         _assert_counts_equal(rec, want)
         _assert_counts_equal(rec, single[sc])
+        assert str(rec["engine"]) == "sortjoin"
     assert want.cnts_u.sum() > 0 and want.cnts_d.sum() > 0
     if sc:
         assert len(want.pair_counts) >= 2
@@ -479,81 +456,23 @@ def test_grid_shard_geometry(grid_runs, toy, layout):
         assert rec["entries"].tolist() == [h - l for l, h in zip(e_lo, e_hi)]
 
 
-@pytest.fixture(scope="module")
-def gather_want(toy, gather_batch):
-    """The batch's counts from the port's single-device gather (CPU) and,
-    per layout, from the JAX package's DistQuerySession in sc mode (its
-    counts and rcounts are those of quant mode) on the conftest's CPU
-    devices."""
-    from cammiq_tpu.index.table import load_flat_index_pair as jload
-    from cammiq_tpu.parallel.dist_query import DistQuerySession as JDist
-    from cammiq_tpu.parallel.mesh import make_mesh
-    from cammiq_tpu_torch.query import classify as tc
-    from cammiq_tpu_torch.query.probe import to_device_index
-
-    index_u, index_d = load_flat_index_pair(toy["iu"], toy["idd"])
-    du, dd = to_device_index(index_u, "cpu"), to_device_index(index_d, "cpu")
-    codes = torch.from_numpy(gather_batch["codes"])
-    lengths = torch.from_numpy(gather_batch["lengths"])
-    Eu, Ed = du.length.shape[0], dd.length.shape[0]
-    rc = torch.zeros(Eu + Ed + 1, dtype=torch.int32)
-    single = tc.classify_batch(du, dd, codes, lengths, G, rc, sc_mode=True)
-    single = dict(cnts_u=single.cnts_u.numpy(), cnts_d=single.cnts_d.numpy(),
-                  nundet=int(single.nundet), nconf=int(single.nconf),
-                  pair_lo=single.pair_lo.numpy(), pair_hi=single.pair_hi.numpy(),
-                  rcount_u=rc[:Eu].numpy(), rcount_d=rc[Eu:Eu + Ed].numpy())
-    ju, jd = jload(toy["iu"], toy["idd"])
-    cache = {}
-
-    def jax_layout(layout):
-        if layout not in cache:
-            cache[layout] = JDist(make_mesh(*layout), ju, jd, G, sc_mode=True
-                                  ).classify(gather_batch["codes"],
-                                             gather_batch["lengths"])._asdict()
-        return cache[layout]
-
-    return single, jax_layout
-
-
-GATHER_FIELDS = ("cnts_u", "cnts_d", "rcount_u", "rcount_d", "nundet", "nconf")
-
-
-@pytest.mark.parametrize("sc", [False, True], ids=["quant", "sc"])
-@pytest.mark.parametrize("layout", LAYOUTS, ids=lambda l: f"{l[0]}x{l[1]}")
-def test_dist_gather_session_matches_jax(grid_runs, gather_want, layout, sc):
-    """DistQuerySession.classify gives every rank of the grid the counts,
-    rcounts and assigned pairs of the JAX package's DistQuerySession on the
-    same layout and of the port's single-device gather."""
-    out, _, _ = grid_runs[layout]
-    single, jax_layout = gather_want
-    want = jax_layout(layout)
-    recs = _rank_records(out, f"gather_{'sc' if sc else 'quant'}",
-                         range(layout[0] * layout[1]))
-    for rec in recs:
-        for f in GATHER_FIELDS:
-            np.testing.assert_array_equal(rec[f], want[f], err_msg=f)
-            np.testing.assert_array_equal(rec[f], single[f], err_msg=f)
-        for f in ("pair_lo", "pair_hi"):
-            if sc:
-                np.testing.assert_array_equal(rec[f], want[f], err_msg=f)
-                np.testing.assert_array_equal(rec[f], single[f], err_msg=f)
-            else:
-                assert (rec[f] == -1).all()
-    assert want["cnts_u"].sum() > 0 and want["rcount_d"].sum() > 0
-    assert (single["pair_lo"] >= 0).sum() > 0
-
-
 # ---- CLI runs
 
-@pytest.mark.parametrize("mode", ["typeI", "typeII"])
+@pytest.mark.parametrize("mode", ["typeI", "typeII", "typeI_gather",
+                                  "typeII_gather"])
 @pytest.mark.parametrize("layout", list(CLI_FLAGS), ids=lambda l: f"{l[0]}x{l[1]}")
 def test_cli_grid_matches_jax_cli(grid_runs, toy, tmp_path, layout, mode):
+    """The grid's Type-I and Type-II files equal ``cammiq_tpu.cli``'s with
+    the same flags, ``--engine gather`` among them (both CLIs run a grid
+    through the sort join)."""
     from cammiq_tpu.cli import main as jax_cli_main
 
     out, logs, world = grid_runs[layout]
     flags, _ = CLI_FLAGS[layout]
+    base = mode.split("_")[0]
     ref = tmp_path / f"{mode}_jax.out"
-    jax_cli_main(_cli_query(toy, mode, ref, *flags)[2:])
+    jax_cli_main(_cli_query(toy, base, ref, *flags,
+                            *CLI_ENGINES[mode[len(base):]])[2:])
     got = (out / f"{mode}.out").read_bytes()
     assert got == ref.read_bytes()
     assert got.startswith(b"QUERY/TAXID\t1000\t1001")
@@ -569,13 +488,17 @@ def single_quant_file(toy, tmp_path_factory):
     return out.read_bytes()
 
 
-@pytest.mark.parametrize("layout", list(CLI_FLAGS), ids=lambda l: f"{l[0]}x{l[1]}")
-def test_cli_grid_quant_matches_single(grid_runs, single_quant_file, layout):
-    """The quant file of the grid equals the port's single-process file;
-    each rank of the grid wrote its own profiler trace (of its Type-I
-    run), the rank beyond the grid none."""
+@pytest.mark.parametrize("layout,suffix", [
+    pytest.param(l, x, id=f"{l[0]}x{l[1]}{x.replace('_', '-')}")
+    for x in CLI_ENGINES for l in CLI_FLAGS])
+def test_cli_grid_quant_matches_single(grid_runs, single_quant_file, layout,
+                                       suffix):
+    """The quant file of the grid, with the default engine and with
+    ``--engine gather``, equals the port's single-process file; each rank
+    of the grid wrote its own profiler trace (of its Type-I run), the rank
+    beyond the grid none."""
     out, _, world = grid_runs[layout]
-    assert (out / "quant.out").read_bytes() == single_quant_file
+    assert (out / f"quant{suffix}.out").read_bytes() == single_quant_file
     assert single_quant_file.count(b"\n") > 5
     dp, mp = layout
     for r in range(world):

@@ -117,18 +117,17 @@ def _tables(art, case):
     return iu, idd
 
 
-def _jax_collect(iu, idd, codes, lengths, **bases):
+def _jax_collect(iu, idd, codes, lengths):
     # op by op: most ops' shapes repeat across cases, where a jit of each
     # table pair would compile anew
     return jc.collect_matches(jp.to_device_index(iu), jp.to_device_index(idd),
-                              jnp.asarray(codes), jnp.asarray(lengths), **bases)
+                              jnp.asarray(codes), jnp.asarray(lengths))
 
 
-def _port_collect(iu, idd, codes, lengths, **bases):
+def _port_collect(iu, idd, codes, lengths):
     return tc.collect_matches(tp.to_device_index(iu, "cpu"),
                               tp.to_device_index(idd, "cpu"),
-                              torch.from_numpy(codes), torch.from_numpy(lengths),
-                              **bases)
+                              torch.from_numpy(codes), torch.from_numpy(lengths))
 
 
 # ---- the plain probe's pieces
@@ -238,15 +237,25 @@ def test_collect_matches_matches_jax(indexes, h, case):
         assert not hits[:5].any()
 
 
-@pytest.mark.parametrize("bases", [dict(u_base=7), dict(u_base=3, d_base=1000)])
-def test_collect_matches_bases_match_jax(indexes, bases):
+@pytest.mark.parametrize("unique", ["full", "empty"])
+def test_collect_matches_bases_match_jax(indexes, unique):
+    """The ids' placement, JAX's default: unique hits in [0, Eu), doubly
+    hits from Eu on, Eu the unique table's device length (1 for an empty
+    table: its dummy entry)."""
     art, gs, planted = indexes(12)
     codes, lengths = make_reads(gs, planted, 6, 12)
-    want = _jax_collect(art.unique_index, art.doubly_index, codes, lengths, **bases)
-    got = _port_collect(art.unique_index, art.doubly_index, codes, lengths, **bases)
+    iu, idd = _tables(art, "empty_unique" if unique == "empty" else "plain")
+    want = _jax_collect(iu, idd, codes, lengths)
+    got = _port_collect(iu, idd, codes, lengths)
     for f in SLOT_FIELDS:
         np.testing.assert_array_equal(getattr(got, f).numpy(),
                                       np.asarray(getattr(want, f)), err_msg=f)
+    Eu = tp.to_device_index(iu, "cpu").length.shape[0]
+    slots, in_u = got.slots.numpy(), got.in_u.numpy()
+    doubly = (slots < kgp.BIG) & ~in_u
+    assert (slots[in_u] < Eu).all() and (slots[doubly] >= Eu).all()
+    assert doubly.any() and in_u.any() == (unique == "full")
+    assert (Eu == 1) == (unique == "empty")
 
 
 def test_plain_version_is_the_cpu_path(indexes):
@@ -282,9 +291,7 @@ def _assert_probe_runs(lo, hi, start):
 def _runs_producer(art, producer):
     """[(lo, hi, start)] of each hash table a producer builds from the
     unique entries of ``art``."""
-    from cammiq_tpu.parallel import dist_query as jdq
     from cammiq_tpu_torch.index import table as ttab
-    from cammiq_tpu_torch.parallel import dist_query as tdq
 
     iu = art.unique_index
     entries = (iu.key_words, iu.length, iu.rid1, iu.ucount1, iu.rid2,
@@ -293,26 +300,22 @@ def _runs_producer(art, producer):
     if kind == "empty":
         t = ttab._empty_flat_index(iu.h, iu.kw, False)
         return [(t.table_lo, t.table_hi, t.table_start)]
-    if kind in ("port", "jax"):
-        build = (ttab if kind == "port" else jtab).build_flat_index_from_entries
-        t = build(*entries, load_factor=float(arg))
-        if float(arg) > 1:
-            assert t.max_probes > 1
-        return [(t.table_lo, t.table_hi, t.table_start)]
-    shard = (tdq if kind == "portshard" else jdq).shard_flat_index
-    s = shard(iu, int(arg))
-    return [(s.table_lo[m], s.table_hi[m], s.table_start[m]) for m in range(s.mp)]
+    build = (ttab if kind == "port" else jtab).build_flat_index_from_entries
+    t = build(*entries, load_factor=float(arg))
+    if float(arg) > 1:
+        assert t.max_probes > 1
+    return [(t.table_lo, t.table_hi, t.table_start)]
 
 
 @pytest.mark.parametrize("producer", ["port_0.5", "port_4.0", "jax_0.5", "jax_4.0",
-                                      "portshard_2", "portshard_4", "jaxshard_2",
-                                      "jaxshard_4", "empty_0"])
+                                      "port_0.25", "port_1.0", "jax_0.25",
+                                      "jax_1.0", "empty_0"])
 def test_hash_tables_are_probe_runs(indexes, producer):
     """Every producer of device tables (the flat builder at load factors
-    0.5 and 4.0, the JAX package's and the port's; the shard builder at 2
-    and 4 shards, both packages'; the empty table) places each bucket at or
-    after its hash row with no empty row in between, never wrapping: the
-    invariant that makes the kernel's stop at an empty row exact."""
+    0.25, 0.5, 1.0 and 4.0, the JAX package's and the port's; the empty
+    table) places each bucket at or after its hash row with no empty row in
+    between, never wrapping: the invariant that makes the kernel's stop at
+    an empty row exact."""
     art, _, _ = indexes(20)
     occupied = [_assert_probe_runs(*t) for t in _runs_producer(art, producer)]
     assert (sum(occupied) == 0) == (producer == "empty_0")

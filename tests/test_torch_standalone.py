@@ -33,7 +33,6 @@ import cammiq_tpu.models.quant as jquant
 import cammiq_tpu.ops.lcp as jlcp
 import cammiq_tpu.ops.sa as jsa
 import cammiq_tpu.ops.scans as jscans
-import cammiq_tpu.parallel.dist_query as jdq
 import cammiq_tpu.query.pipeline as jpipe
 import cammiq_tpu.query.sortjoin as jsj
 import cammiq_tpu.tools.simulate as jsim
@@ -54,7 +53,6 @@ import cammiq_tpu_torch.models.quant as tquant
 import cammiq_tpu_torch.ops.lcp_host as tlcp
 import cammiq_tpu_torch.ops.sa_host as tsa
 import cammiq_tpu_torch.ops.scans_host as tscans
-import cammiq_tpu_torch.parallel.dist_query as tdq
 import cammiq_tpu_torch.query.merged as tmerged
 import cammiq_tpu_torch.query.pipeline as tpipe
 import cammiq_tpu_torch.tools.simulate as tsim
@@ -512,31 +510,6 @@ def test_flat_index_file_read_by_both(flat_pair, tmp_path, writer):
     (ttab if writer == "port" else jtab).save_flat_index(path, got)
     _assert_flat_equal(ttab.load_flat_index(path), want)
     _assert_flat_equal(jtab.load_flat_index(path), want)
-
-
-SHARDED_FIELDS = ("h", "kw", "mp", "e_pad", "max_probes", "max_bucket",
-                  "key_words", "length", "rid1", "rid2", "ucount1", "ucount2",
-                  "table_lo", "table_hi", "table_start", "table_count",
-                  "orig_id")
-
-
-@pytest.mark.parametrize("mp", [1, 3])
-@pytest.mark.parametrize("kind", ["unique", "doubly", "empty"])
-def test_shard_flat_index_matches(flat_pair, kind, mp):
-    """``parallel/dist_query.py:shard_flat_index``, the gather engine's
-    FlatIndex shards, against its source; an empty table gives every shard
-    one padded entry."""
-    if kind == "empty":
-        idx = ttab._empty_flat_index(12, 2, True)
-    else:
-        idx = flat_pair[kind][0]
-    got, want = tdq.shard_flat_index(idx, mp), jdq.shard_flat_index(idx, mp)
-    for f in SHARDED_FIELDS:
-        g, w = getattr(got, f), getattr(want, f)
-        np.testing.assert_array_equal(g, w, err_msg=f)
-        assert np.asarray(g).dtype == np.asarray(w).dtype, f
-    np.testing.assert_array_equal(tdq._entry_prefixes(idx),
-                                  jdq._entry_prefixes(idx))
 
 
 MERGED_FIELDS = ("key_words", "length", "rid1", "rid2", "gid", "color",

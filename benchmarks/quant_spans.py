@@ -13,8 +13,11 @@ if absent; the pool drawn from ``--seed``; a warm-up sample), then runs
 on.  Each line holds the sample's spans in ms (``[count, total_ms]``),
 ``perfbench/spans.py``'s readings, and the ``info`` counters of
 ``solve_quant`` (``candidates``, ``c2_rows``, ``doubly_terms``,
-``fista_chunks``, ``enum_size``, ``bnb_nodes``); a last line holds the
-medians.  Imports no JAX.
+``fista_chunks``, ``enum_size``, ``bnb_nodes``) and the pass's probe
+counters (``probe.rows``, ``probe.level2``, ``probe.survivors`` from
+``QuerySession.last_counters``, and ``level2_share`` = level2 / rows, the
+share of the rows that reached the 64 MB bloom past its level-1 fold); a
+last line holds the medians.  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -31,11 +34,13 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 COUNTERS = ("candidates", "c2_rows", "doubly_terms", "fista_chunks",
-            "enum_size", "bnb_nodes")
+            "enum_size", "bnb_nodes", "probe.rows", "probe.level2",
+            "probe.survivors")
 
 
 def quant_sample(system, reads):
-    """``System.run_sample``'s quant body, keeping ``solve_quant``'s info."""
+    """``System.run_sample``'s quant body, keeping ``solve_quant``'s info
+    with the pass's probe counters added."""
     from cammiq_tpu_torch.models.quant import build_problem, solve_quant
 
     counts = system.sess.run(reads, with_rcounts=True)
@@ -46,7 +51,7 @@ def quant_sample(system, reads):
         nus.astype(np.float64), nds.astype(np.float64), gl,
         counts.mean_read_len, counts.num_reads, system.erate, system.fine)
     _, _, info = solve_quant(prob, device=system.device)
-    return info
+    return {**info, **system.sess.last_counters}
 
 
 def main(argv=None) -> int:
@@ -85,6 +90,9 @@ def main(argv=None) -> int:
                                 sorted(totals.items())},
                    "readings": spans.readings(totals),
                    "info": {c: info.get(c) for c in COUNTERS}}
+            if info.get("probe.rows"):
+                row["info"]["level2_share"] = (info["probe.level2"]
+                                               / info["probe.rows"])
             rows.append(row)
             print(json.dumps(row), flush=True)
     finally:

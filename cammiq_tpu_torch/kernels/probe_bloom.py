@@ -10,7 +10,14 @@ o < O = max(Lp - h + 1, 1)) pairs, row i = b * O + o, N = B * O of them:
     key(i)   = primary 32-bit hash of the h-base prefix at (b, o)
     maybe(i) = all 3 bloom bits of key(i) are set in its bloom word
 
-and the outputs are the maybe rows only, compacted in ascending order:
+The test may run in two levels: ``l1`` (``2^l1_log`` words, l1_log <
+bloom_log) is the bloom OR-folded (``query/merged.py:_fold_bloom``), which
+holds every bit the bloom holds, so a row is tested against the bloom only
+where it passes ``l1`` and the maybe rows are those of the bloom alone.  ``counts`` (int32
+[2]), when given, gets the rows sent to level 2 (every row where there is
+no ``l1``) and the maybe rows added in place.
+
+The outputs are the maybe rows only, compacted in ascending order:
 ``rows[:n]`` (what ``torch.nonzero(maybe)`` gives), ``keys[:n]`` = their
 keys, and ``n`` as an int32 tensor on the rows' device.  The capacity is N,
 so nothing overflows; entries past n are unspecified.
@@ -27,8 +34,8 @@ import torch
 from .. import u32
 from .build import I32, VP, CudaKernel, check_tensor, load, stream_ptr
 
-KERNEL = CudaKernel("cammiq_probe_bloom", [VP, I32, I32, I32, VP, I32, VP, VP,
-                                           VP, VP, VP])
+KERNEL = CudaKernel("cammiq_probe_bloom", [VP, I32, I32, I32, VP, I32, VP, I32,
+                                           VP, VP, VP, VP, VP, VP])
 # longest batch width the kernel takes: one read's codes and packed words
 # (5 bytes a base) must fit a block's 227 KB of shared memory
 MAX_LP = 40_000
@@ -87,14 +94,22 @@ def probe_keys_plain(codes: torch.Tensor, h: int) -> torch.Tensor:
 
 
 def probe_bloom_plain(codes: torch.Tensor, bloom: torch.Tensor, h: int,
-                      bloom_log: int):
-    """The same contract as ``probe_bloom`` (entries past n are 0);
-    ``torch.nonzero`` makes a host sync."""
+                      bloom_log: int, l1: torch.Tensor | None = None,
+                      l1_log: int = 0, counts: torch.Tensor | None = None):
+    """The same contract as ``probe_bloom`` (entries past n are 0), by the
+    kernel's two tests; ``torch.nonzero`` makes a host sync."""
     key = probe_keys_plain(codes, h)
-    word = u32.widen(bloom)[key >> (32 - bloom_log)]
     need = bloom_bits(key)
-    (hit,) = torch.nonzero((word & need) == need, as_tuple=True)
+    sent = torch.arange(key.shape[0], device=codes.device)
+    if l1 is not None:
+        word = u32.widen(l1)[key >> (32 - l1_log)]
+        (sent,) = torch.nonzero((word & need) == need, as_tuple=True)
+    word = u32.widen(bloom)[key[sent] >> (32 - bloom_log)]
+    hit = sent[(word & need[sent]) == need[sent]]
     N, n = key.shape[0], hit.shape[0]
+    if counts is not None:
+        counts[:2] += torch.tensor([sent.shape[0], n], dtype=counts.dtype,
+                                   device=counts.device)
     rows = torch.zeros(N, dtype=torch.int32, device=codes.device)
     keys = torch.zeros(N, dtype=torch.int32, device=codes.device)
     rows[:n] = hit.to(torch.int32)
@@ -103,11 +118,14 @@ def probe_bloom_plain(codes: torch.Tensor, bloom: torch.Tensor, h: int,
 
 
 def probe_bloom(codes: torch.Tensor, bloom: torch.Tensor, h: int,
-                bloom_log: int):
-    """int8 codes [B, Lp], int32 bloom [2^bloom_log] -> (rows int32 [N],
-    keys int32 [N] carrying uint32 bits, n int32 [1]), N = B * O."""
+                bloom_log: int, l1: torch.Tensor | None = None,
+                l1_log: int = 0, counts: torch.Tensor | None = None):
+    """int8 codes [B, Lp], int32 bloom [2^bloom_log], optional int32 l1
+    [2^l1_log] -> (rows int32 [N], keys int32 [N] carrying uint32 bits, n
+    int32 [1]), N = B * O; ``counts`` (int32 [2]) += the rows sent to
+    level 2 and n."""
     if codes.device.type == "cpu":
-        return probe_bloom_plain(codes, bloom, h, bloom_log)
+        return probe_bloom_plain(codes, bloom, h, bloom_log, l1, l1_log, counts)
     dev = codes.device
     if dev.type != "cuda":
         raise ValueError(f"probe_bloom: unsupported device {dev}")
@@ -115,6 +133,15 @@ def probe_bloom(codes: torch.Tensor, bloom: torch.Tensor, h: int,
     check_tensor(bloom, "bloom", torch.int32, dev, 1)
     if bloom.shape[0] != 1 << bloom_log or not 1 <= bloom_log <= 31:
         raise ValueError(f"bloom: {bloom.shape[0]} words, log {bloom_log}")
+    if l1 is not None:
+        check_tensor(l1, "l1", torch.int32, dev, 1)
+        if l1.shape[0] != 1 << l1_log or not 1 <= l1_log < bloom_log:
+            raise ValueError(f"l1: {l1.shape[0]} words, log {l1_log} "
+                             f"(bloom log {bloom_log})")
+    if counts is not None:
+        check_tensor(counts, "counts", torch.int32, dev, 1)
+        if counts.shape[0] < 2:
+            raise ValueError(f"counts: {counts.shape[0]} slots, need 2")
     if not 1 <= h <= 32:
         raise ValueError(f"h={h} out of range")
     B, Lp = codes.shape
@@ -128,6 +155,8 @@ def probe_bloom(codes: torch.Tensor, bloom: torch.Tensor, h: int,
     tiles = load().cammiq_probe_bloom_tiles(B, Lp, h)
     scratch = torch.empty(tiles + 1, dtype=torch.int64, device=dev)
     KERNEL(codes.data_ptr(), B, Lp, h, bloom.data_ptr(), bloom_log,
-           rows.data_ptr(), keys.data_ptr(), n.data_ptr(), scratch.data_ptr(),
+           None if l1 is None else l1.data_ptr(), l1_log if l1 is not None else 0,
+           rows.data_ptr(), keys.data_ptr(), n.data_ptr(),
+           None if counts is None else counts.data_ptr(), scratch.data_ptr(),
            stream_ptr(dev))
     return rows, keys, n

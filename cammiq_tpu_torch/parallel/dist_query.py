@@ -238,7 +238,8 @@ class DistSortJoinSession:
                        num_genome_slots: int, maxm: int,
                        rcount: torch.Tensor | None = None,
                        sc_mode: bool = False, frac: int = 0,
-                       counts: torch.Tensor | None = None) -> BatchCounts:
+                       counts: torch.Tensor | None = None,
+                       probe_counts: torch.Tensor | None = None) -> BatchCounts:
         """``sortjoin.classify_batch`` for this rank's reads (``b`` rows of
         the global batch) against its shard, with the row's slots
         gathered.  Every rank of the row must call it with the same
@@ -246,8 +247,9 @@ class DistSortJoinSession:
         counts (added to ``counts`` when given) and ``rcount`` gets the
         distinct entries of each assigned read; elsewhere only the overflow
         counts are set (the other fields are None) and neither ``counts``
-        nor ``rcount`` is touched."""
-        mt = collect_matches(self.dm, codes, lengths, maxm, frac)
+        nor ``rcount`` is touched.  ``probe_counts`` gets this rank's
+        probe counts (``collect_matches``)."""
+        mt = collect_matches(self.dm, codes, lengths, maxm, frac, probe_counts)
         slots = self.gather(mt.slots)
         if self.grid.model_index:
             return BatchCounts(None, None, None, None, mt.overflow_slots,

@@ -39,6 +39,15 @@ rank widens alike and re-runs the pass with the others.  The genome,
 undetermined, conflict and pair counts and ``rcount`` are added only by the
 rank at model index 0 of each row, which runs the case analysis.
 
+The sort join's pass also counts its probe, in two slots of the same
+buffer: the rows ``probe_bloom`` sent to the bloom itself past its level-1
+fold (``probe.level2``) and its survivors (``probe.survivors``), beside
+``probe.rows``, the rows probed, which the host knows.  ``_pass`` returns
+them with the drained counts and ``run`` keeps the last pass's in
+``last_counters``; level2 / rows is the share of rows that reached the
+bloom (1.0 where there is no level 1).  The slots are int32 read as
+uint32: exact up to 2^32 - 1 rows a pass (some 57 M reads of 100 bases).
+
 ``QueryCounts`` is a copy of ``cammiq_tpu/query/pipeline.py:QueryCounts``.
 The session takes this package's ``FlatIndex`` and ``MergedArtifact`` and,
 duck-typed by their numpy attributes with no import, the JAX package's.
@@ -59,6 +68,7 @@ from ..device import resolve_device
 from ..index.table import FlatIndex, _empty_flat_index
 from ..io.fastq import ReadSet
 from ..kernels import read_pack
+from ..kernels.probe_bloom import num_offsets
 from ..parallel.dist_query import DistSortJoinSession
 from ..parallel.mesh import ProcessGrid
 from ..utils.timing import Timings, span, stage_timer
@@ -184,6 +194,7 @@ class QuerySession:
         self._pair_keys_host = None  # int64 [P], sorted
         self._pair_keys = None       # the same on the device
         self._drain_buf = None       # pinned host copy of the counters (card)
+        self.last_counters = {}      # the last run's probe counters
 
     def pair_keys(self) -> torch.Tensor:
         """Sorted distinct ``lo << 32 | hi`` keys of every pair the doubly
@@ -208,7 +219,9 @@ class QuerySession:
         packer, and ``pass.unpacked``, a batch that did not pack, in it),
         ``pass.upload_wait``,
         ``pass.classify`` (the host's issue of the batch's device work)
-        and ``pass.pair_lookup``, folded, and the end's ``pass.drain``."""
+        and ``pass.pair_lookup``, folded, and the end's ``pass.drain``.
+        The sort join's dict holds the probe counters too (``probe.rows``,
+        ``probe.level2``, ``probe.survivors``: ints)."""
         with span("query.pass"):
             return self._pass(reads, bs, with_rcounts, sc_mode)
 
@@ -222,6 +235,8 @@ class QuerySession:
                  "ovh": 1,
                  # [P + 1]: the last slot is a dump for unassigned reads
                  "pairacc": P + 1}
+        if self.engine == "sortjoin":  # probe_bloom's level-2 rows, survivors
+            sizes["probe"] = 2
         if with_rcounts:   # the largest copy of the pass: only when asked
             sizes["rcount"] = self._rc_size
         # every counter a view of ONE tensor, so the pass ends in one copy
@@ -235,10 +250,11 @@ class QuerySession:
             classify = partial(gather.classify_batch, self.didx_u, self.didx_d)
         elif self.dist is None:
             classify = partial(classify_batch, self.dm, maxm=self.maxm,
-                               frac=self.frac)
+                               frac=self.frac, probe_counts=acc["probe"])
         else:
             classify = partial(self.dist.classify_batch, maxm=self.maxm,
-                               frac=self.frac)
+                               frac=self.frac, probe_counts=acc["probe"])
+        probe_rows = 0
         batches = reads.batches(bs)
         while True:
             with span("pass.stage", fold=True):
@@ -246,6 +262,9 @@ class QuerySession:
             if batch is None:
                 break
             codes, lengths = upload(batch.codes[rows], batch.lengths[rows])
+            if "probe" in acc:
+                probe_rows += codes.shape[0] * num_offsets(codes.shape[1],
+                                                           self.dm.h)
             with span("pass.classify", fold=True):
                 out = classify(codes, lengths, G, rcount=acc.get("rcount"),
                                sc_mode=sc_mode, counts=counts)
@@ -268,6 +287,11 @@ class QuerySession:
                 dist.all_reduce(buf, group=grid.group)
             host = dict(zip(sizes, np.split(self._drain(buf),  # the pass's sync
                                             np.cumsum(list(sizes.values()))[:-1])))
+        if "probe" in host:
+            level2, survivors = (int(x) for x in host.pop("probe").view(np.uint32))
+            world = 1 if grid is None else grid.data * grid.model
+            host.update({"probe.rows": probe_rows * world,
+                         "probe.level2": level2, "probe.survivors": survivors})
         ovs, ovh = int(host["ovs"][0]), int(host["ovh"][0])
         if ovs:
             self.maxm *= 2
@@ -332,6 +356,8 @@ class QuerySession:
             host = self._run_pass(reads, bs, with_rcounts, sc_mode)
             if host is not None:
                 break
+        self.last_counters = {k: v for k, v in host.items()
+                              if k.startswith("probe.")}
         eu, ed, d0 = self.num_entries_u, self.num_entries_d, self._rc_d0
         rc = (host["rcount"].astype(np.int64) if with_rcounts
               else np.zeros(self._rc_size, np.int64))

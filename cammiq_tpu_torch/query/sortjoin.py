@@ -10,7 +10,9 @@ module carries it to the device and probes the forward strand only (see
 Per batch, on fixed shapes and with no host sync:
   1. kernel 2 (``probe_bloom``): prefix hash + bloom test for every
      (read, offset) row, compacted on the device to the maybe rows in
-     order, their keys and their count;
+     order, their keys and their count; where the bloom is larger than
+     the card's L2 holds, a fold of it that the L2 holds is tested first
+     (``level1_log``), and only its passers read the bloom;
   2. kernel 3 (``cuckoo_verify``): exact span lookup + bucket scan over
      the survivors (count read on the device), appending (row, entry)
      matches to a list of static capacity KP (``match_capacity``: the
@@ -52,6 +54,17 @@ from .merged import (
 )
 
 
+def level1_log(bloom_log: int, l2_bytes: int) -> int:
+    """The log words of the bloom's level-1 fold: the largest power of two
+    of 4-byte words within a third of the L2 (the rest stays for the
+    batch's other kernels: its codes, match_assemble's buckets, the
+    rcount lines it touches), or 0, no level 1, where the bloom is no
+    larger than that or there is no L2 to hold it (``l2_bytes`` 0).  On
+    the H100's 50 MB L2: 2^22 words, 16 MB."""
+    log = (l2_bytes // 12).bit_length() - 1
+    return log if 1 <= log < bloom_log else 0
+
+
 def _as_i32(a: np.ndarray, device) -> torch.Tensor:
     """Host array (uint32 or int32, memmap allowed) -> int32 tensor on
     `device` carrying the same 32 bits."""
@@ -60,7 +73,9 @@ def _as_i32(a: np.ndarray, device) -> torch.Tensor:
 
 @dataclasses.dataclass
 class TorchMergedIndex:
-    """The four device arrays the probe path reads, plus its statics.
+    """The device arrays the probe path reads, plus its statics.  The
+    bloom's level-1 fold (``bloom_l1``) is there only where the bloom is
+    larger than ``level1_log``'s share of the card's L2.
 
     ``pref_lo``/``pref_hi``/``brec``/``dir_start`` stay on the host: only
     the JAX package's dir and sort joins read them.
@@ -80,6 +95,8 @@ class TorchMergedIndex:
     bloom_log: int
     cuckoo_log: int
     bloom: torch.Tensor     # int32 [2^bloom_log], folded to <= 2^24 words
+    bloom_l1_log: int       # 0: no level 1
+    bloom_l1: torch.Tensor | None   # int32 [2^bloom_l1_log], bloom folded
     cuckoo: torch.Tensor    # int32 [2^cuckoo_log, 12] keys|starts|counts
     erec: torch.Tensor      # int32 [E, kw+1] key words + (length|color<<16)
     prec: torch.Tensor      # int32 [E, 3] (gid, rid1, rid2)
@@ -119,13 +136,21 @@ class TorchMergedIndex:
 
     @classmethod
     def _make(cls, src, NB, bloom, blog, ck, cklog, erec, prec, device):
+        """The device arrays; the level-1 fold is sized by ``level1_log``
+        from the card's L2 (none on the CPU)."""
         if blog > BLOOM_DEVICE_LOG:
             bloom, blog = _fold_bloom(bloom, BLOOM_DEVICE_LOG)
+        device = torch.device(device)
+        l2 = (torch.cuda.get_device_properties(device).L2_cache_size
+              if device.type == "cuda" else 0)
+        l1_log = level1_log(int(blog), l2)
+        l1 = _as_i32(_fold_bloom(bloom, l1_log)[0], device) if l1_log else None
         return cls(
             h=src.h, kw=src.kw, eu=src.eu, ed=src.ed,
             max_bucket=src.max_bucket, n_colors=src.n_colors, NB=int(NB),
             bloom_log=int(blog), cuckoo_log=int(cklog),
-            bloom=_as_i32(bloom, device), cuckoo=_as_i32(ck, device),
+            bloom=_as_i32(bloom, device), bloom_l1_log=l1_log, bloom_l1=l1,
+            cuckoo=_as_i32(ck, device),
             erec=_as_i32(erec, device), prec=_as_i32(prec, device))
 
     @property
@@ -160,14 +185,18 @@ def match_capacity(N: int, n_colors: int, frac: int) -> int:
 
 
 def collect_matches(dm: TorchMergedIndex, codes: torch.Tensor,
-                    lengths: torch.Tensor, maxm: int, frac: int = 0) -> Matches:
+                    lengths: torch.Tensor, maxm: int, frac: int = 0,
+                    probe_counts: torch.Tensor | None = None) -> Matches:
     """int8 codes [B, Lp], int32 lengths [B] -> Matches with [B, maxm]
     slots (``MatchSlots`` of ``collect_matches_sortjoin``), the match list
-    at capacity ``match_capacity(B * O, n_colors, frac)``."""
+    at capacity ``match_capacity(B * O, n_colors, frac)``.
+    ``probe_counts`` (int32 [2]), when given, gets the probe's rows sent to
+    the bloom (level 2) and its survivors added in place."""
     B, Lp = codes.shape
     O = num_offsets(Lp, dm.h)
     KP = match_capacity(B * O, dm.n_colors, frac)
-    rows, keys, n = probe_bloom(codes, dm.bloom, dm.h, dm.bloom_log)
+    rows, keys, n = probe_bloom(codes, dm.bloom, dm.h, dm.bloom_log,
+                                dm.bloom_l1, dm.bloom_l1_log, probe_counts)
     mrow, me, counts = cuckoo_verify(rows, keys, n, codes, lengths, dm.cuckoo,
                                      dm.cuckoo_log, dm.erec, dm.n_colors, KP)
     slots, rid1, rid2, in_u, overflow = match_assemble(
@@ -179,7 +208,8 @@ def classify_batch(dm: TorchMergedIndex, codes: torch.Tensor,
                    lengths: torch.Tensor, num_genome_slots: int, maxm: int,
                    rcount: torch.Tensor | None = None,
                    sc_mode: bool = False, frac: int = 0,
-                   counts: torch.Tensor | None = None) -> BatchCounts:
+                   counts: torch.Tensor | None = None,
+                   probe_counts: torch.Tensor | None = None) -> BatchCounts:
     """Collect + case analysis for one batch (``case_count``: one launch
     on a CUDA device), with no host sync there.
 
@@ -192,8 +222,9 @@ def classify_batch(dm: TorchMergedIndex, codes: torch.Tensor,
     pair; the JAX session takes no rcount then.  ``frac`` sizes the match
     list (``match_capacity``).  ``counts`` (int32 [2G + 2]: cnts_u, cnts_d,
     nundet, nconf), when given, is a pass accumulator the batch's counts
-    are added to in place, and the returned counts are its views."""
-    mt = collect_matches(dm, codes, lengths, maxm, frac)
+    are added to in place, and the returned counts are its views;
+    ``probe_counts`` is ``collect_matches``'."""
+    mt = collect_matches(dm, codes, lengths, maxm, frac, probe_counts)
     cc = case_count(mt.slots, lengths, num_genome_slots, sc_mode=sc_mode,
                     rcount=rcount, counts=counts)
     return BatchCounts(cc.cnts_u, cc.cnts_d, cc.nundet, cc.nconf,

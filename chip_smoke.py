@@ -33,7 +33,15 @@ nothing of JAX or of the JAX package, and exits nonzero if any phase fails:
    the benchmark's (its first 65,536 reads) packed by the native packer
    into a pinned buffer (byte-equal to pack_reads_plain) and unpack_reads
    on the card against unpack_reads_plain on the same device buffer and
-   against the batch, exactly, beside its bound;
+   against the batch, exactly, beside its bound; then probe_bloom's two
+   levels: a sweep of random 4-byte gathers (torch.index_select, 4,915,200
+   a call, the pass's probe rows) into tables of 4-64 MB, printed as
+   gathers a ns, to show where the L2 stops holding a table that every SM
+   reads; and probe_bloom at the benchmark's batch (65,536 x 100) against
+   the config-#3 filter with one level (the level-1 fold taken off the
+   device index) and with two (the index as the session made it: it must
+   have a level 1), each against its plain version, device only, beside
+   its bound and the share of the rows sent to level 2;
 4. toy end to end through the CLI (5 x 2000 bp genomes, 4000 simulated
    reads, index built on cuda): quant abundances within 0.01 of the truth
    for all 5 genomes, a Type-I file identical to the one the CPU path
@@ -182,6 +190,10 @@ SCAN_N = 1 << 20
 TOY_TOL = 0.01
 # the benchmark's batch of reads (perfbench's query cells)
 BENCH_BATCH = 65536
+# the gather sweep: table sizes (MB) and gathers a call (the benchmark's
+# batch of 65,536 100-base reads at h = 26: 75 probe rows a read)
+SWEEP_MB = (4, 8, 12, 16, 24, 32, 48, 64)
+SWEEP_GATHERS = BENCH_BATCH * 75
 BUILD_CHECK_GENOMES = 64
 DIST_GENOMES = 8
 SLICE = 1 << 24
@@ -424,14 +436,23 @@ def bound_segmented_min(v, flags) -> dict:
     return bound(9 * v.numel())
 
 
-def bound_probe_bloom(codes, bloom, h, blog, n) -> dict:
-    """The codes, the bloom words this batch touches, 8 bytes a survivor
-    (row and key) and the count."""
+def bound_probe_bloom(codes, bloom, h, blog, l1, l1_log, counts, n) -> dict:
+    """The codes, the level-1 words this batch touches and the bloom words
+    its rows sent to level 2 touch (every row's without a level 1), 8 bytes
+    a survivor (row and key) and the count."""
     import torch
 
-    from cammiq_tpu_torch.kernels.probe_bloom import probe_keys_plain
+    from cammiq_tpu_torch import u32
+    from cammiq_tpu_torch.kernels.probe_bloom import bloom_bits, probe_keys_plain
 
-    words = torch.unique(probe_keys_plain(codes, h) >> (32 - blog)).numel()
+    key = probe_keys_plain(codes, h)
+    words = 0
+    if l1 is not None:
+        need = bloom_bits(key)
+        w1 = key >> (32 - l1_log)
+        words = torch.unique(w1).numel()
+        key = key[(u32.widen(l1)[w1] & need) == need]
+    words += torch.unique(key >> (32 - blog)).numel()
     return bound(codes.numel() + 4 * words + 8 * int(n[0]) + 4)
 
 
@@ -1000,7 +1021,8 @@ class Smoke:
         self.results["n_colors"] = art.n_colors
         self.results["index_device_bytes"] = sum(
             t.numel() * t.element_size()
-            for t in (sess.dm.bloom, sess.dm.cuckoo, sess.dm.erec, sess.dm.prec))
+            for t in (sess.dm.bloom, sess.dm.bloom_l1, sess.dm.cuckoo,
+                      sess.dm.erec, sess.dm.prec) if t is not None)
         log(f"session start {self.results['session_start_s']:.1f} s: E={art.E} "
             f"NB={art.NB} max_bucket={art.max_bucket} n_colors={art.n_colors} "
             f"device index {self.results['index_device_bytes'] / 1e9:.3f} GB")
@@ -1045,6 +1067,63 @@ class Smoke:
         (ms, _, G), _ = captured["case_count"]
         self.case_count_vs_plain("case_count", ms, lengths, G,
                                  sess.dm.eu + sess.dm.ed)
+
+    # ---- 3. probe_bloom's two levels at the benchmark's batch
+    def gather_sweep(self):
+        """Random 4-byte gathers (index_select, SWEEP_GATHERS a call) into
+        tables of SWEEP_MB megabytes, device only, as gathers a ns."""
+        import torch
+
+        gen = torch.Generator(device=DEV).manual_seed(5)
+        out = torch.empty(SWEEP_GATHERS, dtype=torch.int32, device=DEV)
+        rates = {}
+        for mb in SWEEP_MB:
+            words = mb << 18
+            table = torch.randint(-2**31, 2**31 - 1, (words,), dtype=torch.int32,
+                                  device=DEV, generator=gen)
+            idx = torch.randint(0, words, (SWEEP_GATHERS,), dtype=torch.int32,
+                                device=DEV, generator=gen)
+            ms = device_ms(lambda: torch.index_select(table, 0, idx, out=out))
+            rates[mb] = SWEEP_GATHERS / (ms * 1e6) if ms else None
+            del table, idx
+        self.results["gather_sweep_per_ns"] = rates
+        log(f"random 4-byte gathers a ns by table size ({SWEEP_GATHERS} a "
+            f"call, device only): " + ", ".join(
+                f"{mb} MB {r:.2f}" if r else f"{mb} MB not measured"
+                for mb, r in rates.items()))
+
+    def probe_levels(self, sess, reads):
+        """probe_bloom at the benchmark's batch against the config-#3
+        filter, one level and two, each against its plain version."""
+        import dataclasses
+
+        import torch
+
+        from cammiq_tpu_torch.kernels import probe_bloom as kpb
+
+        self.gather_sweep()
+        dm = sess.dm
+        if dm.bloom_l1 is None:
+            raise AssertionError(f"the config-#3 index's bloom (2^{dm.bloom_log} "
+                                 "words) has no level 1 on this card")
+        codes = torch.from_numpy(reads.codes[:BENCH_BATCH]).to(DEV).contiguous()
+        N = codes.shape[0] * kpb.num_offsets(codes.shape[1], dm.h)
+        one = dataclasses.replace(dm, bloom_l1=None, bloom_l1_log=0)
+        for name, d in ((f"probe_bloom@{BENCH_BATCH}", one),
+                        (f"probe_bloom@{BENCH_BATCH} two levels", dm)):
+            args = (codes, d.bloom, d.h, d.bloom_log, d.bloom_l1, d.bloom_l1_log)
+            counts = torch.zeros(2, dtype=torch.int32, device=DEV)
+            n = kpb.probe_bloom(*args, counts)[2]
+            self.compare(name, kpb.probe_bloom, kpb.probe_bloom_plain, args,
+                         bound_probe_bloom(*args, None, n), plain_reps=(1, 1, 0),
+                         canon=probe_canon)
+            level2, survivors = counts.tolist()
+            self.kernels[name].update(rows=N, level2=level2, survivors=survivors)
+            level1 = (f"level 1 2^{d.bloom_l1_log} words" if d.bloom_l1_log
+                      else "no level 1")
+            log(f"{name}: bloom 2^{d.bloom_log} words, {level1}, {N} rows, "
+                f"{level2} sent to level 2 (share {level2 / N:.4f}), "
+                f"{survivors} survivors")
 
     # ---- 3. the upload at 2 bits a base: the packer and unpack_reads
     def upload_vs_plain(self, reads):
@@ -2473,6 +2552,8 @@ def main() -> int:
     if art_sess:
         art, sess = art_sess
         s.phase("kernels vs plain versions", s.kernels_vs_plain, sess, reads)
+        s.phase("probe_bloom in two levels at the benchmark's batch",
+                s.probe_levels, sess, reads)
     if reads:
         s.phase("the upload at 2 bits a base vs plain", s.upload_vs_plain, reads)
     s.phase("toy end to end through the CLI", s.toy_cli)

@@ -7,6 +7,7 @@ JAX or of the JAX package, so it runs on a GPU host without either:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
 import datetime
 import warnings
 
@@ -14,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from cammiq_tpu_torch import u32
 from cammiq_tpu_torch.config import BuildConfig, QueryConfig
 from cammiq_tpu_torch.index import unique as uq
 from cammiq_tpu_torch.index.builder import build_index
@@ -35,7 +37,8 @@ from cammiq_tpu_torch.parallel import dist_query as tdq
 from cammiq_tpu_torch.index.table import _empty_flat_index
 from cammiq_tpu_torch.query import classify as tgc
 from cammiq_tpu_torch.query.classify import MatchSlots, case_count
-from cammiq_tpu_torch.query.merged import build_merged_index
+from cammiq_tpu_torch.query.merged import (_build_bloom, _fold_bloom,
+                                           build_merged_index)
 from cammiq_tpu_torch.query.pipeline import QuerySession
 from cammiq_tpu_torch.query.probe import to_device_index
 import cammiq_tpu_torch.query.sortjoin as tsj
@@ -384,6 +387,76 @@ def test_probe_bloom_kernel_matches_plain(cuda_device, h, Lp, B, aligned):
     k = int(n[0])
     assert torch.equal(rows[:k], want[0][:k]) and torch.equal(keys[:k], want[1][:k])
     assert 0 < k < rows.shape[0]
+
+
+def _sparse_bloom(codes, h, log, rng):
+    """A bloom of 2^log words at about one key a word (the device index's
+    load), over every third prefix ``codes`` probe and random keys."""
+    probed = u32.narrow(kpb.probe_keys_plain(codes, h)).cpu().numpy()
+    keys = np.concatenate([probed.view(np.uint32)[::3],
+                           rng.integers(0, 1 << 32, 1 << log).astype(np.uint32)])
+    return _build_bloom(np.sort(keys), log)[0]
+
+
+def _i32(a, device):
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(device)
+
+
+@pytest.mark.parametrize("h,Lp,B,blog", [
+    (12, 100, 512, 16), (20, 100, 512, 16), (26, 100, 512, 16),
+    (26, 37, 512, 16), (20, 16, 512, 16), (26, 100, 8192, 16),
+    (20, 16, 5000, 16), (26, 12000, 6, 16),
+    (26, 100, 65536, 24)])      # the pass's batch against a 64 MB filter
+@pytest.mark.parametrize("aligned", [True, False])
+def test_probe_bloom_two_levels_match_plain(cuda_device, h, Lp, B, blog, aligned):
+    """With a level-1 fold (the filter folded two logs down) the kernel's
+    survivors, keys and count equal the plain version's and the one-level
+    launch's, exactly on the first n, and the two counters (rows sent to
+    level 2, survivors) equal the plain version's: at the shapes of the
+    one-level test and at the pass's 65,536 x 100 batch against a
+    2^24-word filter."""
+    rng = np.random.default_rng(h * 1000 + Lp + B + blog)
+    x = rng.integers(0, 4, (B, Lp)).astype(np.int8)
+    x[rng.random(x.shape) < 0.02] = -1
+    x[-3:] = 0
+    flat = torch.zeros(B * Lp + 3, dtype=torch.int8, device=cuda_device)
+    codes = flat[0 if aligned else 3:][:B * Lp].view(B, Lp)
+    codes.copy_(torch.from_numpy(x))
+    bloom_np = _sparse_bloom(codes, h, blog, rng)
+    l1_np, l1_log = _fold_bloom(bloom_np, blog - 2)
+    bloom, l1 = _i32(bloom_np, cuda_device), _i32(l1_np, cuda_device)
+    got_c, want_c = (torch.zeros(2, dtype=torch.int32, device=cuda_device)
+                     for _ in range(2))
+    before = kpb.KERNEL.launches
+    got = kpb.probe_bloom(codes, bloom, h, blog, l1, l1_log, got_c)
+    assert kpb.KERNEL.launches == before + 1
+    one = kpb.probe_bloom(codes, bloom, h, blog)
+    want = kpb.probe_bloom_plain(codes, bloom, h, blog, l1, l1_log, want_c)
+    k = int(want[2][0])
+    for out in (got, one):
+        assert torch.equal(out[2], want[2])
+        assert torch.equal(out[0][:k], want[0][:k])
+        assert torch.equal(out[1][:k], want[1][:k])
+    assert torch.equal(got_c, want_c)
+    assert 0 < k < int(want_c[0]) < got[0].shape[0]
+
+
+def test_probe_bloom_rejects_bad_level1(cuda_device):
+    codes = torch.zeros((4, 30), dtype=torch.int8, device=cuda_device)
+    bloom = torch.zeros(1 << 10, dtype=torch.int32, device=cuda_device)
+    l1 = torch.zeros(1 << 8, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):        # size and log disagree
+        kpb.probe_bloom(codes, bloom, 20, 10, l1, 9)
+    with pytest.raises(ValueError):        # no smaller than the bloom
+        kpb.probe_bloom(codes, bloom, 20, 10, bloom, 10)
+    with pytest.raises(ValueError):
+        kpb.probe_bloom(codes, bloom, 20, 10, l1.cpu(), 8)
+    with pytest.raises(ValueError):
+        kpb.probe_bloom(codes, bloom, 20, 10, l1, 8,
+                        torch.zeros(1, dtype=torch.int32, device=cuda_device))
+    with pytest.raises(TypeError):
+        kpb.probe_bloom(codes, bloom, 20, 10, l1, 8,
+                        torch.zeros(2, dtype=torch.int64, device=cuda_device))
 
 
 def _match_pairs(mrow, me, counts, kp):
@@ -1280,6 +1353,50 @@ def strain_db():
     its reads."""
     art, gs, G = strain_index()
     return art, strain_reads(gs, 3, 2048), G
+
+
+def test_session_level1_survivors_and_counters(cuda_device, strain_db):
+    """The strain database's session: its bloom fits the L2's budget, so
+    its device index has no level 1 and every row reaches the bloom; with a
+    level-1 fold put on the index, each batch's survivors are those of the
+    one-level probe, the pass's counts are the same, and ``probe.level2``
+    and ``probe.survivors`` equal a host count by the plain version."""
+    art, rs, G = strain_db
+    sess = QuerySession(art.unique_index, art.doubly_index, G,
+                        QueryConfig(h=art.unique_index.h, batch_size=512),
+                        device=cuda_device)
+    dm = sess.dm
+    assert dm.bloom_l1 is None and dm.bloom_l1_log == 0
+    base = sess.run(rs)
+    one = dict(sess.last_counters)
+    l1_np, l1_log = _fold_bloom(dm.bloom.cpu().numpy(), dm.bloom_log - 4)
+    two = dataclasses.replace(dm, bloom_l1=_i32(l1_np, cuda_device),
+                              bloom_l1_log=l1_log)
+    lp = min(rs.codes.shape[1], int(rs.lengths.max()))
+    want, rows, cpu_l1 = torch.zeros(2, dtype=torch.int32), 0, _i32(l1_np, "cpu")
+    for batch in rs.batches(sess.batch_size(rs)):
+        host = torch.from_numpy(np.ascontiguousarray(batch.codes[:, :lp]))
+        codes = host.to(cuda_device)
+        a = kpb.probe_bloom(codes, dm.bloom, dm.h, dm.bloom_log)
+        b = kpb.probe_bloom(codes, two.bloom, two.h, two.bloom_log,
+                            two.bloom_l1, two.bloom_l1_log)
+        k = int(a[2][0])
+        assert torch.equal(a[2], b[2]) and k > 0
+        assert torch.equal(a[0][:k], b[0][:k]) and torch.equal(a[1][:k], b[1][:k])
+        kpb.probe_bloom_plain(host, dm.bloom.cpu(), dm.h, dm.bloom_log, cpu_l1,
+                              l1_log, want)
+        rows += host.shape[0] * kpb.num_offsets(lp, dm.h)
+    sess.dm = two
+    got = sess.run(rs)
+    for f in ("cnts_u", "cnts_d", "rcount_u", "rcount_d"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(base, f))
+    assert (got.nundet, got.nconf) == (base.nundet, base.nconf)
+    assert sess.last_counters == {"probe.rows": rows,
+                                  "probe.level2": int(want[0]),
+                                  "probe.survivors": int(want[1])}
+    assert one == {"probe.rows": rows, "probe.level2": rows,
+                   "probe.survivors": int(want[1])}
+    assert int(want[1]) < int(want[0]) < rows
 
 
 @pytest.mark.parametrize("sc_mode", [False, True])

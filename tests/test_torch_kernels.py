@@ -2,6 +2,8 @@
 (bit-identical).  The CUDA kernels against the plain versions are in
 test_torch_cuda.py, which imports no JAX and so also runs on a GPU host."""
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,16 +17,22 @@ from cammiq_tpu.query.sortjoin import (
     _build_cuckoo,
     _cuckoo_lookup,
     _first_of_run_scan,
+    _fold_bloom,
     _hash_prefix,
 )
 from cammiq_tpu_torch import u32
+from cammiq_tpu_torch.config import QueryConfig
 from cammiq_tpu_torch.kernels import build
 from cammiq_tpu_torch.kernels.cuckoo_verify import cuckoo_lookup_plain
 from cammiq_tpu_torch.kernels.first_of_run import (
     first_of_run_scan,
     first_of_run_scan_plain,
 )
-from cammiq_tpu_torch.kernels.probe_bloom import probe_bloom_plain
+from cammiq_tpu_torch.kernels.probe_bloom import num_offsets, probe_bloom_plain
+from cammiq_tpu_torch.query import merged as tmerged
+from cammiq_tpu_torch.query.pipeline import QuerySession
+from cammiq_tpu_torch.query.sortjoin import level1_log
+from torch_fixture import dist_fixture
 
 # small tensors: intra-op threads would only contend with other test workers
 torch.set_num_threads(1)
@@ -131,11 +139,9 @@ def _jax_probe(codes, h, bloom, bloom_log):
     return np.asarray(khlo), np.asarray(maybe)
 
 
-@pytest.mark.parametrize("noncanon", [False, True])
-@pytest.mark.parametrize("h", [20, 26])
-@pytest.mark.parametrize("Lp", [100, 37, 16])
-def test_probe_bloom_plain_matches_jax(h, Lp, noncanon):
-    """The compacted survivors equal JAX's maybe rows and their keys.
+def _probe_inputs(h, Lp, noncanon):
+    """48 reads of Lp codes and a bloom over half of their prefixes plus
+    random keys, so both outcomes of the membership test occur.
     ``noncanon``: -1 codes (non-ACGT, which pack_rolling16 widens to
     0xFFFFFFFF) and zero-length padded reads, as a padded batch holds."""
     rng = np.random.default_rng(h * 1000 + Lp)
@@ -143,12 +149,24 @@ def test_probe_bloom_plain_matches_jax(h, Lp, noncanon):
     if noncanon:
         codes[rng.random(codes.shape) < 0.03] = -1
         codes[-4:] = 0
-    # a filter over half of the probed prefixes plus random keys, so both
-    # outcomes of the membership test occur
     khlo_all, _ = _jax_probe(codes, h, np.zeros(1 << 12, np.uint32), 12)
     keys = np.concatenate([khlo_all[::2],
                            rng.integers(0, 1 << 32, 5000).astype(np.uint32)])
     bloom, blog = _build_bloom(np.sort(keys))
+    return codes, bloom, blog
+
+
+def _i32(a):
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
+
+
+@pytest.mark.parametrize("noncanon", [False, True])
+@pytest.mark.parametrize("h", [20, 26])
+@pytest.mark.parametrize("Lp", [100, 37, 16])
+def test_probe_bloom_plain_matches_jax(h, Lp, noncanon):
+    """The compacted survivors equal JAX's maybe rows and their keys, -1
+    codes and zero-length padded reads included (``_probe_inputs``)."""
+    codes, bloom, blog = _probe_inputs(h, Lp, noncanon)
     khlo, maybe = _jax_probe(codes, h, bloom, blog)
     rows, k, n = probe_bloom_plain(torch.from_numpy(codes),
                                    torch.from_numpy(bloom.view(np.int32)), h, blog)
@@ -160,6 +178,100 @@ def test_probe_bloom_plain_matches_jax(h, Lp, noncanon):
     if noncanon:      # the -1 codes reach the hashes
         clean = np.where(codes < 0, 0, codes).astype(np.int8)
         assert (_jax_probe(clean, h, bloom, blog)[0] != khlo).any()
+
+
+@pytest.mark.parametrize("drop", [1, 2, 4])
+@pytest.mark.parametrize("noncanon", [False, True])
+@pytest.mark.parametrize("h", [20, 26])
+def test_probe_bloom_plain_two_levels(h, noncanon, drop):
+    """With a level-1 fold (the bloom folded ``drop`` logs down by JAX's
+    ``_fold_bloom``) the survivors, keys and count equal the one-level
+    call's and JAX's ``_bloom_maybe``; the rows counted as sent to level 2
+    are those JAX's test passes against the fold, and the survivors n."""
+    codes, bloom, blog = _probe_inputs(h, 100, noncanon)
+    khlo, maybe = _jax_probe(codes, h, bloom, blog)
+    l1, l1_log = _fold_bloom(bloom, blog - drop)
+    assert l1_log == blog - drop
+    c = torch.from_numpy(codes)
+    one = probe_bloom_plain(c, _i32(bloom), h, blog)
+    counts = torch.zeros(2, dtype=torch.int32)
+    two = probe_bloom_plain(c, _i32(bloom), h, blog, _i32(l1), l1_log, counts)
+    for a, b in zip(one, two):
+        assert torch.equal(a, b)
+    n = int(two[2][0])
+    np.testing.assert_array_equal(two[0][:n].numpy(), np.nonzero(maybe)[0])
+    np.testing.assert_array_equal(two[1][:n].numpy().view(np.uint32), khlo[maybe])
+    _, sent = _jax_probe(codes, h, l1, l1_log)
+    assert counts.tolist() == [int(sent.sum()), n]
+    assert 0 < n < int(sent.sum()) < maybe.shape[0]
+
+
+@pytest.mark.parametrize("drop", [1, 2, 4])
+def test_bloom_fold_keeps_every_bit(drop):
+    """The port's fold (what the device index's level 1 is made with)
+    equals JAX's and holds every bit of every bloom word: word w's bits
+    are set in fold word w >> drop, so every key of the bloom passes it."""
+    rng = np.random.default_rng(drop)
+    keys = np.sort(rng.integers(0, 1 << 32, 30000).astype(np.uint32))
+    bloom, blog = _build_bloom(keys)
+    l1, l1_log = tmerged._fold_bloom(bloom, blog - drop)
+    want, want_log = _fold_bloom(bloom, blog - drop)
+    assert l1_log == want_log == blog - drop and l1.shape == (1 << l1_log,)
+    np.testing.assert_array_equal(l1, want)
+    w = np.arange(1 << blog)
+    assert ((l1[w >> drop] & bloom) == bloom).all()
+    bits = tmerged._bloom_bits(keys)
+    assert ((l1[keys >> np.uint32(32 - l1_log)] & bits) == bits).all()
+
+
+@pytest.mark.parametrize("blog,l2,want", [
+    (24, 50 << 20, 22),   # the H100: 2^22 words, 16 MB, in front of 64 MB
+    (26, 50 << 20, 22), (23, 50 << 20, 22),
+    (22, 50 << 20, 0),    # the filter fits the budget: one level
+    (12, 50 << 20, 0),
+    (24, 40 << 20, 21),
+    (24, 0, 0),           # no L2 (the CPU): one level
+])
+def test_level1_log(blog, l2, want):
+    """The level-1 size: the largest power of two of words within a third
+    of the L2, and none where the bloom is no larger than that."""
+    assert level1_log(blog, l2) == want
+
+
+@pytest.mark.parametrize("drop", [0, 6])
+def test_pass_probe_counters(drop):
+    """A pass's probe counters equal the plain version's counts summed over
+    its batches (the session's trimmed width, padded last batch), with one
+    level (``drop`` 0: every row goes to level 2) and with a level-1 fold
+    put on the device index; the counts the pass returns are the same with
+    and without the fold."""
+    art, rs, G = dist_fixture(seed=13)
+    cfg = QueryConfig(h=art.unique_index.h, batch_size=64)
+    sess = QuerySession(art.unique_index, art.doubly_index, G, cfg, device="cpu")
+    base = sess.run(rs)
+    dm = sess.dm
+    l1 = None
+    if drop:
+        l1 = _i32(tmerged._fold_bloom(dm.bloom.numpy(), dm.bloom_log - drop)[0])
+        sess.dm = dataclasses.replace(dm, bloom_l1=l1,
+                                      bloom_l1_log=dm.bloom_log - drop)
+    got = sess.run(rs)
+    for f in dataclasses.fields(got):
+        a, b = getattr(got, f.name), getattr(base, f.name)
+        assert (np.array_equal(a, b) if isinstance(a, np.ndarray) else a == b)
+    want, rows = torch.zeros(2, dtype=torch.int32), 0
+    bs = sess.batch_size(rs)
+    lp = min(rs.codes.shape[1], int(rs.lengths.max()))
+    for batch in rs.batches(bs):
+        codes = torch.from_numpy(np.ascontiguousarray(batch.codes[:, :lp]))
+        probe_bloom_plain(codes, dm.bloom, dm.h, dm.bloom_log, l1,
+                          dm.bloom_log - drop, want)
+        rows += codes.shape[0] * num_offsets(lp, dm.h)
+    assert sess.last_counters == {"probe.rows": rows,
+                                  "probe.level2": int(want[0]),
+                                  "probe.survivors": int(want[1])}
+    assert 0 < want[1] < want[0] <= rows
+    assert (int(want[0]) == rows) == (drop == 0)
 
 
 def _cuckoo_fixture(seed=5, nd=20000):
